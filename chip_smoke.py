@@ -8,18 +8,26 @@ Phases, each printed with its seconds:
 1. device: the card's name and power limit (nvidia-smi); TF32 is turned
    off for matmuls and cuDNN;
 2. build: the CUDA kernels of ``mind_the_gaps_tpu_torch/csrc`` with nvcc,
-   into ``mind_the_gaps_tpu_torch/_build`` (keyed by a hash of the source);
-3. kernel against plain: ``celerite_log_likelihood`` (the CUDA kernel)
-   against its plain PyTorch version on the same tensors on the card, at
-   the shapes of the main path, each with both times from CUDA events;
-4. main path: ``protassov_lrt(..., device="cuda")`` on the lrt_512
+   one process per source, all started together, into
+   ``mind_the_gaps_tpu_torch/_build`` (keyed by a hash of the source);
+3. kernels against plain: ``celerite_log_likelihood`` (packed and dense-S
+   bodies), ``rank_remap`` and ``sort_kv`` (the CUDA kernels) against their
+   plain PyTorch versions on the same tensors on the card, at the shapes of
+   the main paths, each with both times from CUDA events; the sorts must be
+   equal to their plain versions (``torch.equal``);
+4. Gaussian main path: ``protassov_lrt(..., device="cuda")`` on the lrt_512
    scenario (N=5000 DRW-true data, DRW null, DRW+Lorentzian alternative,
-   512 simulations), with the kernel's launch count over that run.
+   512 simulations), with the kernels' launch counts over that run;
+5. lognormal main path: the same LRT with ``pdf="Lognormal"`` (E13 cut
+   m=65536, lock-step chunks of 128), reusing phase 4's fitted observed
+   models, with the E13 iteration counts and the launch counts;
+6. tutorial-scale E13 generation: lognormal lightcurves per second at
+   n=500, B=256, cut 8192 (the JAX package's bench.py scenario).
 
 The last lines are the card's name and power limit, one JSON line of the
-kernels (route, source, launches in the main path, error and times) and
-``{"ok": true, "device": {...}}``.  Any failure raises: there is no CPU
-path, and the script fails outside a checkout of the repository.
+kernels (route, source, launches in the main paths, error, times and
+bound) and ``{"ok": true, "device": {...}}``.  Any failure raises: there is
+no CPU path, and the script fails outside a checkout of the repository.
 """
 from __future__ import annotations
 
@@ -32,8 +40,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCE = "mind_the_gaps_tpu_torch/csrc/celerite_loglike.cu"
-REPLACES = "mind_the_gaps_tpu/ops/pallas_celerite.py:520"
+CELERITE_SOURCE = "mind_the_gaps_tpu_torch/csrc/celerite_loglike.cu"
+SORT_SOURCE = "mind_the_gaps_tpu_torch/csrc/bitonic_sort.cu"
+# the card's published peaks (H100 SXM data sheet, at the 700 W limit):
+# memory, and float32 / float64 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = {4: 67e12, 8: 34e12}
 
 
 def check(cond, msg):
@@ -54,9 +66,11 @@ def phase(name, t0):
 
 
 def cuda_ms(fn, reps):
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, from CUDA events."""
+    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up
+    run, from CUDA events."""
     import torch
 
+    fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -66,8 +80,52 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(n_bytes, n_ops, itemsize):
+    """(bound ms, what sets it): the least time for ``n_bytes`` of memory
+    traffic and ``n_ops`` operations on ``itemsize``-byte floats at the
+    card's peaks."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / OPS_PER_S[itemsize] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def celerite_step_ops(jr, jc, dense=False):
+    """Floating-point operations of one time step of one likelihood in
+    csrc/celerite_loglike.cu, counted from its loops (an exp, log, sin, cos
+    or division counts as one)."""
+    R = jr + 2 * jc
+    row = [1] * jr + [3] * (2 * jc)  # one row of P times a vector: real 1, complex 3
+    s_ops = R * sum(row) if dense else sum(sum(row[i:]) for i in range(R))
+    return (
+        2 * jr + 7 * jc  # propagators
+        + 3 * (R * R if dense else R * (R + 1) // 2)  # M = S + D W W^T
+        + R * sum(row) + s_ops  # P M, then (P M) P^T
+        + R * (2 * R - 1) + 2 * R + 2  # S u, u^T S u, D, 1 / D
+        + 2 * R + sum(row) + 2 * R + 1 + 2 * R  # f, u^T f, z, W
+        + 12  # the two Kahan sums, log|D| and the pivot test
+    )
+
+
+def celerite_bound(case):
+    """Bound of one celerite launch: each input read once (dt, the data
+    columns, coefficients, mean, jitter), the output written once; the
+    operations of the kernel's recursion."""
+    B, N, jr, jc, cols, item = case["B"], case["N"], case["jr"], case["jc"], case["cols"], case["itemsize"]
+    n_bytes = item * (N + 2 * N * cols + B * (2 * jr + 4 * jc) + 3 * B)
+    return bound(n_bytes, B * (N - 1) * celerite_step_ops(jr, jc, dense=not case["sym"]), item)
+
+
+def sort_bound(case):
+    """Bound of one sort launch: each input read once and each output
+    written once; one operation per compare-exchange of the bitonic
+    network on the padded row."""
+    B, m = case["B"], case["m"]
+    n = 1 << max(m - 1, 0).bit_length()
+    lg = n.bit_length() - 1
+    return bound(B * m * case["bytes_per_elem"], B * (n // 2) * lg * (lg + 1) // 2, case["itemsize"])
+
+
 def kernel_cases(card):
-    """Phase 3: kernel against plain at the main path's shapes."""
+    """Phase 3, celerite: kernel against plain at the main path's shapes."""
     import numpy as np
     import torch
 
@@ -101,21 +159,25 @@ def kernel_cases(card):
 
     f64, f32 = torch.float64, torch.float32
     cases = [
-        # name, kernel, B, t, layout, dtype, G, reference
-        ("observed-fit step: shared B=16 N=5000 R=3 f64", drw_qpo, 16, t5k, "shared", f64, None, "same"),
-        ("bootstrap null step: grouped G=513x6 N=5000 R=1 f32", drw, 3078, t5k, "grouped", f32, 513, "same"),
-        ("bootstrap alt step: grouped G=513x6 N=5000 R=3 f32", drw_qpo, 3078, t5k, "grouped", f32, 513, "same"),
-        ("float64 refine: per-element B=513 N=5000 R=3 f64", drw_qpo, 513, t5k, "per", f64, None, "same"),
-        ("R=6 Jc=0: shared B=64 N=37 f64", real6, 64, t5k[:37], "shared", f64, None, "same"),
-        ("R=6 Jr=0: shared B=64 N=37 f64", cplx6, 64, t5k[:37], "shared", f64, None, "same"),
-        ("f32 against f64: grouped G=513x6 N=5000 R=3", drw_qpo, 3078, t5k, "grouped", f32, 513, "f64"),
+        # name, kernel, B, t, layout, dtype, G, reference, sym
+        ("observed-fit step: shared B=16 N=5000 R=3 f64", drw_qpo, 16, t5k, "shared", f64, None, "same", True),
+        ("bootstrap null step: grouped G=513x6 N=5000 R=1 f32", drw, 3078, t5k, "grouped", f32, 513, "same", True),
+        ("bootstrap alt step: grouped G=513x6 N=5000 R=3 f32", drw_qpo, 3078, t5k, "grouped", f32, 513, "same", True),
+        ("float64 refine: per-element B=513 N=5000 R=3 f64", drw_qpo, 513, t5k, "per", f64, None, "same", True),
+        ("R=6 Jc=0: shared B=64 N=37 f64", real6, 64, t5k[:37], "shared", f64, None, "same", True),
+        ("R=6 Jr=0: shared B=64 N=37 f64", cplx6, 64, t5k[:37], "shared", f64, None, "same", True),
+        ("f32 against f64: grouped G=513x6 N=5000 R=3", drw_qpo, 3078, t5k, "grouped", f32, 513, "f64", True),
         ("f32 against f64 at t~5e7: shared B=16 N=5000 R=3", slow, 16,
-         5e7 + np.cumsum(rng.uniform(2e4, 1e5, 5000)), "shared", f32, None, "f64"),
+         5e7 + np.cumsum(rng.uniform(2e4, 1e5, 5000)), "shared", f32, None, "f64", True),
+        ("dense-S, bootstrap alt step: grouped G=513x6 N=5000 R=3 f32", drw_qpo, 3078, t5k, "grouped", f32, 513,
+         "same", False),
+        ("dense-S, float64 refine: per-element B=513 N=5000 R=3 f64", drw_qpo, 513, t5k, "per", f64, None,
+         "same", False),
     ]
     results = []
-    for name, kernel, B, t, layout, dtype, G, reference in cases:
+    for name, kernel, B, t, layout, dtype, G, reference, sym in cases:
         args = inputs(kernel, B, t, layout, dtype, G)
-        out = celerite_log_likelihood(**args)
+        out = celerite_log_likelihood(**args, sym=sym)
         torch.cuda.synchronize()
         if reference == "same":
             ref_args = args
@@ -124,7 +186,7 @@ def kernel_cases(card):
                         for k, v in args.items()}
             ref_args["coeffs"] = type(args["coeffs"])(*(c.double() for c in args["coeffs"]))
         ref = celerite_log_likelihood_plain(**ref_args)
-        ms = cuda_ms(lambda: celerite_log_likelihood(**args), reps=5)
+        ms = cuda_ms(lambda: celerite_log_likelihood(**args, sym=sym), reps=5)
         plain_ms = cuda_ms(lambda: celerite_log_likelihood_plain(**args), reps=1)
         finite = torch.isfinite(ref)
         check(torch.equal(torch.isfinite(out), finite), f"{name}: -inf pattern differs")
@@ -139,18 +201,106 @@ def kernel_cases(card):
         else:
             ok = bool((err <= 1e-2 + 1e-4 * ref.abs()).all())
             tol = "rtol 1e-4, atol 1e-2"
-        print(f"[kernel] {name}: max_abs_err={max_abs:.3e} ({tol}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-              f"[{card}]", flush=True)
+        jr, jc = args["coeffs"].ar.shape[1], args["coeffs"].ac.shape[1]
+        case = dict(name=name, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, sym=sym, reference=reference,
+                    B=B, N=len(t), jr=jr, jc=jc, cols=1 if args["y"].dim() == 1 else args["y"].shape[0],
+                    itemsize=args["y"].element_size())
+        case["bound_ms"], case["bound_by"] = celerite_bound(case)
+        print(f"[kernel] {name}: max_abs_err={max_abs:.3e} ({tol}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}) [{card}]", flush=True)
         check(ok, f"{name}: kernel disagrees with the plain version (max abs err {max_abs})")
-        results.append(dict(name=name, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms))
+        results.append(case)
 
-    # a non-positive-definite theta: -inf from both
+    # a non-positive-definite theta: -inf from both bodies and the plain version
     args = inputs(drw, 16, t5k, "shared", f64)
     args["coeffs"] = args["coeffs"]._replace(ar=-args["coeffs"].ar)
-    out = celerite_log_likelihood(**args)
     ref = celerite_log_likelihood_plain(**args)
-    check(bool(torch.all(out == -math.inf)) and bool(torch.all(ref == -math.inf)), "non-PD theta must give -inf")
-    print("[kernel] non-PD theta: -inf from kernel and plain version", flush=True)
+    check(bool(torch.all(ref == -math.inf)), "non-PD theta must give -inf from the plain version")
+    for sym in (True, False):
+        out = celerite_log_likelihood(**args, sym=sym)
+        check(bool(torch.all(out == -math.inf)), f"non-PD theta must give -inf (sym={sym})")
+    print("[kernel] non-PD theta: -inf from both kernel bodies and the plain version", flush=True)
+    return results
+
+
+def e13_step_keys(lc, kernel, B, dev, seed=0):
+    """(adj, sorted draws, draws): the keys and draws of one real E13
+    spectral step of the lognormal scenario, as
+    ``simulator.e13_adjust_batch`` makes them, for ``B`` TK95 segments of
+    the E13 cut length on ``dev``."""
+    import torch
+
+    from mind_the_gaps_tpu_torch.simulator import tk95_rates
+    from mind_the_gaps_tpu_torch.stats import sample_pdf
+
+    sim = lc.get_simulator(kernel.get_psd, "Lognormal", extension_factor=2, device=dev)
+    m = sim._e13_cut_len
+    gen = torch.Generator(dev).manual_seed(seed)
+    omega = torch.as_tensor(sim.omega[1:], dtype=torch.float64, device=dev)
+    psd = kernel.get_psd(omega, torch.as_tensor(kernel.get_parameter_vector(), device=dev)[None].expand(B, -1))
+    psd = torch.cat([psd.new_zeros((B, 1)), psd], dim=1)
+    segments = tk95_rates(psd, sim.fftndatapoints, sim.sim_dt, generator=gen)[:, :m]
+    xsim = sample_pdf("lognormal", float(lc.mean), segments.std(dim=-1, correction=0)[:, None], (B, m),
+                      generator=gen)
+    amplitudes = torch.abs(torch.fft.rfft(segments.float(), dim=-1)) / (m // 2 + 1)
+    phases = torch.angle(torch.fft.rfft(xsim.float(), dim=-1))
+    adj = torch.fft.irfft(amplitudes * torch.exp(1j * phases), n=m, dim=-1)
+    draws = -torch.sort(-xsim.float(), dim=-1).values
+    return adj.contiguous(), draws.contiguous(), xsim
+
+
+def sort_cases(card, lc, kernel):
+    """Phase 3, sorts: kernel against plain, equal by ``torch.equal``."""
+    import torch
+
+    from mind_the_gaps_tpu_torch.ops import rank_remap, rank_remap_plain, sort_kv, sort_kv_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(7)
+    adj65, draws65, xsim65 = e13_step_keys(lc, kernel, 128, dev)
+    check(adj65.shape == (128, 65536), f"the lognormal scenario's E13 cut is {tuple(adj65.shape)}, not (128, 65536)")
+
+    def planted(B, m):
+        """Keys from few values, +0.0 and -0.0 among them."""
+        vals = torch.tensor([-1.5, -0.0, 0.0, 0.0, -0.0, 2.0, 2.0, 3.25], device=dev)
+        return vals[torch.randint(0, 8, (B, m), generator=gen, device=dev)]
+
+    def randn(B, m, dtype=torch.float32):
+        return torch.randn(B, m, generator=gen, device=dev, dtype=dtype)
+
+    def desc(x):
+        return -torch.sort(-x, dim=-1).values
+
+    cases = [
+        # name, op, inputs, bytes an element in and out
+        ("rank_remap (128, 65536) one E13 step, two-level tier", "remap", (adj65, draws65), 20),
+        ("rank_remap (128, 65536) planted ties and +-0.0", "remap", (planted(128, 65536), draws65), 20),
+        ("rank_remap (512, 8192) single-block tier", "remap", (randn(512, 8192), desc(randn(512, 8192))), 20),
+        ("rank_remap (128, 50011) non-power-of-two", "remap", (adj65[:, :50011].contiguous(),
+                                                                draws65[:, :50011].contiguous()), 20),
+        ("sort_kv (128, 65536) f64, the E13 draws", "sort", (-xsim65, xsim65), 32),
+        ("sort_kv (128, 16384) f32", "sort", (randn(128, 16384), randn(128, 16384)), 16),
+        ("sort_kv (64, 8) f32 with ties", "sort", (planted(64, 8), randn(64, 8)), 16),
+    ]
+    results = []
+    for name, op, args, bpe in cases:
+        fn, plain = (rank_remap, rank_remap_plain) if op == "remap" else (sort_kv, sort_kv_plain)
+        out = fn(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        equal = all(torch.equal(a, b) for a, b in zip(out, ref))
+        if op == "sort":
+            equal = equal and torch.equal(torch.signbit(out[0]), torch.signbit(ref[0]))
+        max_abs = max(float((a.double() - b.double()).abs().max()) for a, b in zip(out, ref))
+        plain_ms = cuda_ms(lambda: plain(*args), reps=10)
+        ms = cuda_ms(lambda: fn(*args), reps=10)
+        case = dict(name=name, op=op, ms=ms, plain_ms=plain_ms, max_abs_err=max_abs, equal=equal,
+                    B=args[0].shape[0], m=args[0].shape[1], bytes_per_elem=bpe, itemsize=args[0].element_size())
+        case["bound_ms"], case["bound_by"] = sort_bound(case)
+        print(f"[kernel] {name}: torch.equal={equal}, kernel {ms:.3f} ms, plain (library) {plain_ms:.3f} ms, "
+              f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}) [{card}]", flush=True)
+        check(equal, f"{name}: the kernel is not equal to its plain version")
+        results.append(case)
     return results
 
 
@@ -179,6 +329,44 @@ def lrt_scenario(n=5000):
     return lc, null, alt
 
 
+def e13_generation_rate(card, dev, n_points=500, B=256):
+    """Phase 6: lognormal (E13) generation at the tutorial-scale segment
+    (~6.6k fine samples -> the 8192 power-of-two cut), the scenario of the
+    JAX package's bench.py, on ``dev``."""
+    import numpy as np
+    import torch
+
+    from mind_the_gaps_tpu_torch.gpmodelling import synchronize
+    from mind_the_gaps_tpu_torch.kernels import DampedRandomWalk
+    from mind_the_gaps_tpu_torch.ops import rank_remap
+    from mind_the_gaps_tpu_torch.simulator import Simulator
+
+    rng = np.random.default_rng(0)
+    t = np.cumsum(rng.uniform(4.0, 9.0, n_points))
+    kernel = DampedRandomWalk(log_S0=1.0, log_omega0=-3.0)
+    theta0 = kernel.get_parameter_vector()
+    sim = Simulator(kernel.get_psd, t, exposures=1.0, mean=10.0, pdf="lognormal", extension_factor=2,
+                    max_iter=400, device=dev)
+    check(sim._e13_cut_len == 8192, f"tutorial-scale cut is {sim._e13_cut_len}, not 8192")
+    omega = torch.as_tensor(sim.omega[1:], dtype=torch.float64, device=dev)
+    thetas = torch.as_tensor(theta0[None, :] + 0.15 * rng.standard_normal((B, 2)), device=dev)
+    psd = kernel.get_psd(omega, thetas)
+    psd = torch.cat([psd.new_zeros((B, 1)), psd], dim=1)
+    sim.simulate_batch(psd, generator=torch.Generator(dev).manual_seed(1))  # warm-up
+    synchronize(dev)
+    launches = rank_remap.launches
+    start = time.perf_counter()
+    out = sim.simulate_batch(psd, generator=torch.Generator(dev).manual_seed(2))
+    synchronize(dev)
+    elapsed = time.perf_counter() - start
+    iters = sim._last_e13_iters.float()
+    check(out.shape == (B, n_points) and bool(torch.all(torch.isfinite(out))) and bool(torch.all(out > 0)),
+          "E13 generation: rates not finite and positive")
+    print(f"[e13] lognormal generation n={n_points}, B={B}, cut {sim._e13_cut_len}: {elapsed:.4f} s, "
+          f"{B / elapsed:.1f} lightcurves/s, E13 iterations mean {float(iters.mean()):.1f} "
+          f"max {int(iters.max())}, remap launches {rank_remap.launches - launches} [{card}]", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nsims", type=int, default=512)
@@ -204,54 +392,114 @@ def main(argv=None):
 
     # ---- 2. build ----------------------------------------------------- #
     t0 = time.perf_counter()
-    from mind_the_gaps_tpu_torch.ops import _build, celerite_log_likelihood
+    from mind_the_gaps_tpu_torch.ops import _build, celerite_log_likelihood, rank_remap, sort_kv
 
-    lib = _build.build("celerite_loglike")
-    print(f"[build] {lib.relative_to(ROOT)}", flush=True)
+    for lib in _build.build("celerite_loglike", "bitonic_sort"):
+        print(f"[build] {lib.relative_to(ROOT)}", flush=True)
     phase("build", t0)
 
-    # ---- 3. kernel against plain -------------------------------------- #
+    # ---- 3. kernels against plain ------------------------------------- #
     t0 = time.perf_counter()
-    cases = kernel_cases(card)
-    phase("kernel against plain", t0)
+    lc, null, alt = lrt_scenario()
+    cel_cases = kernel_cases(card)
+    srt_cases = sort_cases(card, lc, null)
+    phase("kernels against plain", t0)
 
-    # ---- 4. main path ------------------------------------------------- #
+    def reset_counts():
+        celerite_log_likelihood.launches = celerite_log_likelihood.dense_launches = 0
+        rank_remap.launches = sort_kv.launches = 0
+
+    def read_counts():
+        return dict(celerite=celerite_log_likelihood.launches, celerite_dense=celerite_log_likelihood.dense_launches,
+                    rank_remap=rank_remap.launches, sort_kv=sort_kv.launches)
+
+    # ---- 4. Gaussian main path ---------------------------------------- #
     t0 = time.perf_counter()
     from mind_the_gaps_tpu_torch.lrt import protassov_lrt
 
-    lc, null, alt = lrt_scenario()
     if args.observed_max_steps != 10_000:
         print(f"[main] observed_max_steps cut from 10000 to {args.observed_max_steps}", flush=True)
-    celerite_log_likelihood.launches = 0
+    reset_counts()
     res = protassov_lrt(
         lc, null, alt, nsims=args.nsims, seed=0, observed_max_steps=args.observed_max_steps,
         observed_walkers=32, sim_max_steps=500, sim_walkers=12, chunk=512, device="cuda",
     )
     torch.cuda.synchronize()
-    launches = celerite_log_likelihood.launches
+    gauss = read_counts()
     for key, sec in res.timings.items():
         print(f"[main] {key} = {sec:.3f}", flush=True)
     print(f"[main] t_obs = {res.t_obs:.6f}, p_value = {res.p_value:.6f}, "
-          f"t_obs_posterior = {res.t_obs_posterior:.6f}, kernel launches = {launches}", flush=True)
+          f"t_obs_posterior = {res.t_obs_posterior:.6f}, launches = {gauss}", flush=True)
     print(f"[main] null converged = {res.null_model.converged} after {res.null_model.sampler.iteration} steps, "
           f"alt converged = {res.alt_model.converged} after {res.alt_model.sampler.iteration} steps, "
           f"null MAP = {res.null_model.max_parameters}, alt MAP = {res.alt_model.max_parameters}", flush=True)
-    check(launches > 0, "the main path never launched the celerite kernel")
+    check(gauss["celerite"] > 0, "the main path never launched the celerite kernel")
     check(res.t_dist.shape == (args.nsims,) and bool(np.all(np.isfinite(res.t_dist))), "t_dist not finite")
     check(0.0 <= res.p_value <= 1.0, f"p-value {res.p_value} outside [0, 1]")
     check(math.isfinite(res.t_obs), "t_obs not finite")
     check("jax" not in sys.modules, "the port imported jax")
-    phase("main path", t0)
+    phase("Gaussian main path", t0)
+
+    # ---- 5. lognormal main path --------------------------------------- #
+    t0 = time.perf_counter()
+    reset_counts()
+    res5 = protassov_lrt(
+        lc, null, alt, nsims=args.nsims, pdf="Lognormal", seed=0, null_model=res.null_model,
+        alt_model=res.alt_model, sim_max_steps=500, sim_walkers=12, chunk=512, device="cuda",
+    )
+    torch.cuda.synchronize()
+    logn = read_counts()
+    sim = res.null_model._simulator
+    iters = sim._last_e13_iters
+    nonconv = int(torch.sum(iters >= sim.max_iter))
+    for key, sec in res5.timings.items():
+        print(f"[lognormal] {key} = {sec:.3f}", flush=True)
+    print(f"[lognormal] E13 cut {sim._e13_cut_len}, chunk {sim._e13_chunk_default()}, iterations of the "
+          f"{iters.numel()} simulations: mean {float(iters.float().mean()):.2f}, max {int(iters.max())}, "
+          f"non-converged (hit max_iter={sim.max_iter}) {nonconv}", flush=True)
+    print(f"[lognormal] t_obs = {res5.t_obs:.6f}, p_value = {res5.p_value:.6f}, "
+          f"t_obs_posterior = {res5.t_obs_posterior:.6f}, launches = {logn}", flush=True)
+    check(logn["rank_remap"] > 0 and logn["sort_kv"] > 0, "the lognormal path never launched the sort kernel")
+    check(logn["celerite"] > 0, "the lognormal path never launched the celerite kernel")
+    check(iters.numel() == args.nsims, "the E13 iteration counts do not cover the simulations")
+    check(res5.t_dist.shape == (args.nsims,) and bool(np.all(np.isfinite(res5.t_dist))), "t_dist not finite")
+    check(0.0 <= res5.p_value <= 1.0, f"p-value {res5.p_value} outside [0, 1]")
+    check("jax" not in sys.modules, "the port imported jax")
+    phase("lognormal main path", t0)
+
+    # ---- 6. tutorial-scale E13 generation ----------------------------- #
+    t0 = time.perf_counter()
+    e13_generation_rate(card, torch.device("cuda"))
+    phase("tutorial-scale E13 generation", t0)
 
     # ---- summary ------------------------------------------------------ #
-    main_case = next(c for c in cases if c["name"].startswith("bootstrap alt step"))
-    print(f"[summary] kernel times of the entry: {main_case['name']}", flush=True)
+    def row(name, route, source, replaces, launches, case, library_ms):
+        return {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches,
+                "max_abs_err": case["max_abs_err"], "ms": case["ms"], "plain_ms": case["plain_ms"],
+                "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": library_ms}
+
+    def named(cases, prefix):
+        return next(c for c in cases if c["name"].startswith(prefix))
+
+    cel = named(cel_cases, "bootstrap alt step")
+    dense = named(cel_cases, "dense-S, bootstrap alt step")
+    remap = named(srt_cases, "rank_remap (128, 65536) one E13 step")
+    srt = named(srt_cases, "sort_kv (128, 65536) f64")
+    for c in (cel, dense, remap, srt):
+        print(f"[summary] times of the entry: {c['name']}", flush=True)
+    print("[summary] launches are the sums over the Gaussian and lognormal main paths; the sorts' plain "
+          "versions are the library calls (stable torch.sort / argsort with a gather / scatter)", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "celerite_loglike", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases if "against f64" not in c["name"]),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        row("celerite_loglike", "cuda", CELERITE_SOURCE, "mind_the_gaps_tpu/ops/pallas_celerite.py:520",
+            gauss["celerite"] + logn["celerite"], cel, None),
+        row("celerite_loglike dense-S", "cuda", CELERITE_SOURCE, "mind_the_gaps_tpu/ops/pallas_celerite.py:48",
+            gauss["celerite_dense"] + logn["celerite_dense"], dense, None),
+        row("bitonic_sort rank_remap", "cuda", SORT_SOURCE, "mind_the_gaps_tpu/ops/pallas_sort.py:556",
+            gauss["rank_remap"] + logn["rank_remap"], remap, remap["plain_ms"]),
+        row("bitonic_sort sort_kv", "cuda", SORT_SOURCE, "mind_the_gaps_tpu/ops/pallas_sort.py:460",
+            gauss["sort_kv"] + logn["sort_kv"], srt, srt["plain_ms"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -1,9 +1,10 @@
 // Batched celerite GP log-likelihood for Hopper (sm_90a), float and double.
 //
 // Replaces the Pallas TPU kernel `pallas_log_likelihood`
-// (mind_the_gaps_tpu/ops/pallas_celerite.py, packed-symmetric body
-// `_make_kernel_sym`).  For B parameter draws over one sorted time grid it
-// returns
+// (mind_the_gaps_tpu/ops/pallas_celerite.py): its packed-symmetric body
+// `_make_kernel_sym`, and with the template flag DENSE (the entry's
+// `dense_s` argument) its dense-S body `_make_kernel`, which keeps S as the
+// full R x R.  For B parameter draws over one sorted time grid it returns
 //
 //     out[b] = log N(y_b | mean[b], K(theta_b) + diag_b + extra_diag[b])
 //
@@ -50,6 +51,12 @@ __device__ __forceinline__ constexpr int pidx(int i, int j) {
   return i <= j ? i * R - (i * (i - 1)) / 2 + (j - i) : j * R - (j * (j - 1)) / 2 + (i - j);
 }
 
+// index of S(i, j): packed symmetric, or row-major R x R when DENSE
+template <int R, bool DENSE>
+__device__ __forceinline__ constexpr int sidx(int i, int j) {
+  return DENSE ? i * R + j : pidx<R>(i, j);
+}
+
 template <typename T>
 __device__ __forceinline__ T dev_exp(T x);
 template <>
@@ -93,7 +100,7 @@ __device__ __forceinline__ T prop_row(int i, const T* er, const T* cs, const T* 
   return sn[k] * x(a) + cs[k] * x(a + 1);
 }
 
-template <typename T, int JR, int JC>
+template <typename T, int JR, int JC, bool DENSE>
 __global__ void __launch_bounds__(kThreads)
 celerite_loglike_kernel(const T* __restrict__ dt, const T* __restrict__ y, int y_cols,
                         const T* __restrict__ diag, int d_cols,
@@ -103,7 +110,7 @@ celerite_loglike_kernel(const T* __restrict__ dt, const T* __restrict__ y, int y
                         const T* __restrict__ mean, const T* __restrict__ extra_diag,
                         int B, int N, int repeats, T* __restrict__ out) {
   constexpr int R = JR + 2 * JC;
-  constexpr int NS = R * (R + 1) / 2;
+  constexpr int NS = DENSE ? R * R : R * (R + 1) / 2;
   constexpr int JRs = JR > 0 ? JR : 1;
   constexpr int JCs = JC > 0 ? JC : 1;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -185,12 +192,13 @@ celerite_loglike_kernel(const T* __restrict__ dt, const T* __restrict__ y, int y
       sn[k] = e * s;
     }
 
-    // M = S + D W W^T (packed)
+    // M = S + D W W^T (upper triangle, or all of it when DENSE)
     T Mp[NS];
 #pragma unroll
     for (int i = 0; i < R; ++i) {
 #pragma unroll
-      for (int j = i; j < R; ++j) Mp[pidx<R>(i, j)] = S[pidx<R>(i, j)] + D * W[i] * W[j];
+      for (int j = DENSE ? 0 : i; j < R; ++j)
+        Mp[sidx<R, DENSE>(i, j)] = S[sidx<R, DENSE>(i, j)] + D * W[i] * W[j];
     }
     // Tm = P M (full R x R)
     T Tm[R][R];
@@ -198,23 +206,23 @@ celerite_loglike_kernel(const T* __restrict__ dt, const T* __restrict__ y, int y
     for (int i = 0; i < R; ++i) {
 #pragma unroll
       for (int c = 0; c < R; ++c)
-        Tm[i][c] = prop_row<T, JR>(i, er, cs, sn, [&](int k) { return Mp[pidx<R>(k, c)]; });
+        Tm[i][c] = prop_row<T, JR>(i, er, cs, sn, [&](int k) { return Mp[sidx<R, DENSE>(k, c)]; });
     }
-    // S = Tm P^T, upper triangle only
+    // S = Tm P^T, upper triangle only (all of it when DENSE)
 #pragma unroll
     for (int i = 0; i < R; ++i) {
 #pragma unroll
-      for (int c = i; c < R; ++c)
-        S[pidx<R>(i, c)] = prop_row<T, JR>(c, er, cs, sn, [&](int k) { return Tm[i][k]; });
+      for (int c = DENSE ? 0 : i; c < R; ++c)
+        S[sidx<R, DENSE>(i, c)] = prop_row<T, JR>(c, er, cs, sn, [&](int k) { return Tm[i][k]; });
     }
 
     T Su[R];
     T uSu = T(0);
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      T acc = S[pidx<R>(i, 0)] * u[0];
+      T acc = S[sidx<R, DENSE>(i, 0)] * u[0];
 #pragma unroll
-      for (int j = 1; j < R; ++j) acc += S[pidx<R>(i, j)] * u[j];
+      for (int j = 1; j < R; ++j) acc += S[sidx<R, DENSE>(i, j)] * u[j];
       Su[i] = acc;
     }
 #pragma unroll
@@ -253,26 +261,28 @@ celerite_loglike_kernel(const T* __restrict__ dt, const T* __restrict__ y, int y
   out[b] = ok ? ll : neg_inf<T>();
 }
 
-template <typename T, int JR, int JC>
+template <typename T, int JR, int JC, bool DENSE>
 int launch(const T* dt, const T* y, int y_cols, const T* diag, int d_cols, const T* ar,
            const T* cr, const T* ac, const T* bc, const T* cc, const T* dc, const T* mean,
            const T* extra_diag, int B, int N, int repeats, T* out, cudaStream_t stream) {
   const int blocks = (B + kThreads - 1) / kThreads;
-  celerite_loglike_kernel<T, JR, JC><<<blocks, kThreads, 0, stream>>>(
+  celerite_loglike_kernel<T, JR, JC, DENSE><<<blocks, kThreads, 0, stream>>>(
       dt, y, y_cols, diag, d_cols, ar, cr, ac, bc, cc, dc, mean, extra_diag, B, N, repeats, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(int Jr, int Jc, const T* dt, const T* y, int y_cols, const T* diag, int d_cols,
-             const T* ar, const T* cr, const T* ac, const T* bc, const T* cc, const T* dc,
+int dispatch(int Jr, int Jc, int dense_s, const T* dt, const T* y, int y_cols, const T* diag,
+             int d_cols, const T* ar, const T* cr, const T* ac, const T* bc, const T* cc, const T* dc,
              const T* mean, const T* extra_diag, int B, int N, int repeats, T* out,
              cudaStream_t stream) {
   if (B <= 0 || N <= 0 || repeats <= 0) return -2;
 #define CELERITE_CASE(JR_, JC_)                                                              \
   if (Jr == JR_ && Jc == JC_)                                                                \
-    return launch<T, JR_, JC_>(dt, y, y_cols, diag, d_cols, ar, cr, ac, bc, cc, dc, mean,    \
-                               extra_diag, B, N, repeats, out, stream);
+    return dense_s ? launch<T, JR_, JC_, true>(dt, y, y_cols, diag, d_cols, ar, cr, ac, bc, cc, \
+                                               dc, mean, extra_diag, B, N, repeats, out, stream) \
+                   : launch<T, JR_, JC_, false>(dt, y, y_cols, diag, d_cols, ar, cr, ac, bc, cc,\
+                                                dc, mean, extra_diag, B, N, repeats, out, stream);
   // every (Jr, Jc) with 1 <= Jr + 2 Jc <= 6
   CELERITE_CASE(1, 0) CELERITE_CASE(2, 0) CELERITE_CASE(3, 0)
   CELERITE_CASE(4, 0) CELERITE_CASE(5, 0) CELERITE_CASE(6, 0)
@@ -287,27 +297,28 @@ int dispatch(int Jr, int Jc, const T* dt, const T* y, int y_cols, const T* diag,
 }  // namespace
 
 // C entry points.  Pointers are device pointers; mean and extra_diag may be
-// null.  Returns 0 on success, -1 for an unsupported (Jr, Jc), -2 for a bad
-// size, otherwise the cudaError_t of the launch.
-extern "C" int celerite_loglike_f32(int Jr, int Jc, const void* dt, const void* y, int y_cols,
-                                    const void* diag, int d_cols, const void* ar, const void* cr,
+// null; dense_s != 0 selects the dense-S body.  Returns 0 on success, -1
+// for an unsupported (Jr, Jc), -2 for a bad size, otherwise the cudaError_t
+// of the launch.
+extern "C" int celerite_loglike_f32(int Jr, int Jc, int dense_s, const void* dt, const void* y,
+                                    int y_cols, const void* diag, int d_cols, const void* ar, const void* cr,
                                     const void* ac, const void* bc, const void* cc,
                                     const void* dc, const void* mean, const void* extra_diag,
                                     int B, int N, int repeats, void* out, void* stream) {
   using T = float;
-  return dispatch<T>(Jr, Jc, (const T*)dt, (const T*)y, y_cols, (const T*)diag, d_cols,
+  return dispatch<T>(Jr, Jc, dense_s, (const T*)dt, (const T*)y, y_cols, (const T*)diag, d_cols,
                      (const T*)ar, (const T*)cr, (const T*)ac, (const T*)bc, (const T*)cc,
                      (const T*)dc, (const T*)mean, (const T*)extra_diag, B, N, repeats, (T*)out,
                      (cudaStream_t)stream);
 }
 
-extern "C" int celerite_loglike_f64(int Jr, int Jc, const void* dt, const void* y, int y_cols,
-                                    const void* diag, int d_cols, const void* ar, const void* cr,
+extern "C" int celerite_loglike_f64(int Jr, int Jc, int dense_s, const void* dt, const void* y,
+                                    int y_cols, const void* diag, int d_cols, const void* ar, const void* cr,
                                     const void* ac, const void* bc, const void* cc,
                                     const void* dc, const void* mean, const void* extra_diag,
                                     int B, int N, int repeats, void* out, void* stream) {
   using T = double;
-  return dispatch<T>(Jr, Jc, (const T*)dt, (const T*)y, y_cols, (const T*)diag, d_cols,
+  return dispatch<T>(Jr, Jc, dense_s, (const T*)dt, (const T*)y, y_cols, (const T*)diag, d_cols,
                      (const T*)ar, (const T*)cr, (const T*)ac, (const T*)bc, (const T*)cc,
                      (const T*)dc, (const T*)mean, (const T*)extra_diag, B, N, repeats, (T*)out,
                      (cudaStream_t)stream);

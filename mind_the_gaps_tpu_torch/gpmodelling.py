@@ -8,8 +8,10 @@ PyTorch port of ``mind_the_gaps_tpu/gpmodelling.py``:
   reference's convergence, discard and thin policy; every step evaluates
   half the ensemble through ``ops.celerite_log_likelihood`` (the CUDA
   kernel for a CUDA ``device``);
-- ``make_device_generator``: posterior-predictive TK95 lightcurves for a
-  batch of parameter draws, on the device.
+- ``make_device_generator``: posterior-predictive lightcurves (TK95, and
+  the E13 adjustment for a non-Gaussian flux PDF) for a batch of parameter
+  draws, on the device; ``generate_batch_from_posteriors`` /
+  ``generate_from_posteriors`` draw them from the posterior samples.
 
 Parameter vector convention: kernel parameters first, then mean-model
 parameters when the mean is fitted.
@@ -38,6 +40,8 @@ from mind_the_gaps_tpu_torch.solver.numpy_ref import numpy_log_likelihood
 from mind_the_gaps_tpu_torch.solver.semiseparable import log_likelihood as solver_log_likelihood
 
 __all__ = ["GPModelling", "ChainResult"]
+
+GEN_CHUNK = 512  # lightcurves a generation call of generate_batch_from_posteriors
 
 _NOT_DERIVED = (
     "Posteriors have not been derived. Please run derive_posteriors prior to populate the attributes."
@@ -74,14 +78,14 @@ class ChainResult:
 class GPModelling:
     """Gaussian Process modelling of a GappyLightcurve on ``device``.
 
-    ``device``: where the sampler and its likelihoods run ("cpu" or a CUDA
-    device).  The MAP fit runs on the CPU whatever the device (see
-    ``fit``)."""
+    ``device``: where the sampler, its likelihoods and the simulations run
+    (a CUDA device by default, or "cpu").  The MAP fit runs on the CPU
+    whatever the device (see ``fit``)."""
 
     meanmodels = ["linear", "constant", "gaussian"]
 
     def __init__(self, lightcurve: GappyLightcurve, kernel, mean_model: Optional[str] = None,
-                 device="cpu"):
+                 device="cuda"):
         self._lightcurve = lightcurve
         self.kernel = kernel
         self.device = torch.device(device)
@@ -108,6 +112,7 @@ class GPModelling:
         self._tau = None
         self.converged = False
         self.timings = {}
+        self._simulator = None  # that of the last device generator
         self._generator = torch.Generator(self.device).manual_seed(
             int(np.random.SeedSequence().entropy % (2**63))
         )
@@ -480,11 +485,14 @@ class GPModelling:
     def make_device_generator(self, pdf: str = "Gaussian", extension_factor: int = 2, sigma_noise=None):
         """Posterior-predictive generator on the device:
         ``gen(thetas (B, D), generator) -> (rates (B, n), dy (B, n))``,
-        the TK95 draw, cut, downsampling and noise of each draw."""
-        if pdf.lower() != "gaussian":
-            raise NotImplementedError("non-Gaussian PDFs are not ported yet (ROADMAP queue 1, item 9: E13 path)")
+        the TK95 draw, cut, E13 adjustment (non-Gaussian ``pdf``),
+        downsampling and noise of each draw.  The E13 non-convergence
+        count accumulates on the device and ``gen.report_nonconverged()``
+        fetches it once, at the end of a run.  The simulator stays in
+        ``_simulator``."""
         simulator = self._lightcurve.get_simulator(
-            self.kernel.get_psd, pdf, sigma_noise=sigma_noise, extension_factor=extension_factor
+            self.kernel.get_psd, pdf, sigma_noise=sigma_noise, extension_factor=extension_factor,
+            device=self.device,
         )
         omega = torch.as_tensor(simulator.omega[1:], dtype=torch.float64, device=self.device)
         nk = self._nk
@@ -493,8 +501,47 @@ class GPModelling:
             thetas = torch.as_tensor(thetas, dtype=torch.float64, device=self.device)
             psd = self.kernel.get_psd(omega, thetas[:, :nk])
             psd = torch.cat([psd.new_zeros((psd.shape[0], 1)), psd], dim=1)
-            rates = simulator.simulate_batch(psd, generator=generator)
+            rates = simulator.simulate_batch(psd, generator=generator, warn_nonconverged=False)
             return simulator.add_noise_batch(rates, generator)
 
         gen.simulator = simulator
+        gen.report_nonconverged = simulator.report_nonconverged
+        self._simulator = simulator
         return gen
+
+    def generate_batch_from_posteriors(self, nsims: int, pdf: str = "Gaussian", extension_factor: int = 2,
+                                       sigma_noise=None, seed: Optional[int] = None):
+        """numpy (rates (nsims, n), dy (nsims, n)) of lightcurves simulated
+        from posterior samples drawn with replacement; ``seed`` reseeds
+        the model's generator."""
+        if seed is not None:
+            self._generator = torch.Generator(self.device).manual_seed(int(seed))
+        samples = torch.as_tensor(np.asarray(self.mcmc_samples, dtype=np.float64), device=self.device)
+        idx = torch.randint(0, samples.shape[0], (nsims,), generator=self._generator, device=self.device)
+        gen = self.make_device_generator(pdf, extension_factor=extension_factor, sigma_noise=sigma_noise)
+        noisy_out, dy_out = [], []
+        for start in range(0, nsims, GEN_CHUNK):
+            noisy, dy = gen(samples[idx[start : start + GEN_CHUNK]], self._generator)
+            noisy_out.append(noisy.cpu().numpy())
+            dy_out.append(dy.cpu().numpy())
+        gen.report_nonconverged()  # one end-of-run E13 non-convergence warning
+        return np.concatenate(noisy_out), np.concatenate(dy_out)
+
+    def generate_from_posteriors(self, nsims: int = 10, cpus: int = 8, pdf: str = "Gaussian",
+                                 extension_factor: int = 2, sigma_noise=None, seed: Optional[int] = None):
+        """Posterior-predictive lightcurves as a list of GappyLightcurve
+        (``cpus``: API parity; the batch is the parallelism)."""
+        if self._mcmc_samples is None:
+            raise RuntimeError(
+                "Posteriors have not been derived. Please run derive_posteriors prior to calling this method."
+            )
+        if nsims >= len(self._mcmc_samples):
+            warnings.warn(
+                "The number of simulation requested (%d) is higher than the number of posterior samples (%d), "
+                "so many samples will be drawn more than once" % (nsims, len(self._mcmc_samples))
+            )
+        rates, dy = self.generate_batch_from_posteriors(
+            nsims, pdf=pdf, extension_factor=extension_factor, sigma_noise=sigma_noise, seed=seed
+        )
+        times = self._lightcurve.times
+        return [GappyLightcurve(times, r, e) for r, e in zip(rates, dy)]

@@ -1,11 +1,12 @@
 """The Protassov et al. (2002) posterior-predictive likelihood-ratio test.
 
-PyTorch port of the Gaussian path of ``mind_the_gaps_tpu/lrt.py``:
+PyTorch port of ``mind_the_gaps_tpu/lrt.py``:
 
 1. fit the null and alternative GP models to the observed lightcurve
    (MAP fit, then MCMC posteriors);
-2. simulate ``nsims`` lightcurves from the null posterior (TK95 with
-   noise), chunk by chunk on the device;
+2. simulate ``nsims`` lightcurves from the null posterior (TK95, the E13
+   flux-PDF adjustment for a lognormal or uniform ``pdf``, noise), chunk
+   by chunk on the device;
 3. refit both models to every simulated lightcurve with short stretch-move
    chains, all (simulation x walker) chains of a chunk in lock-step, each
    half-ensemble update one batched likelihood launch (grouped layout);
@@ -59,7 +60,7 @@ def _f64_logprob_chunk(kernel, t, ys, diags, thetas):
     return torch.where(torch.isfinite(lp), lp + ll, ll.new_full((), -math.inf))
 
 
-def loglikes_f64_at(kernel, times, ys, dys, thetas, chunk: int = 4096, device="cpu"):
+def loglikes_f64_at(kernel, times, ys, dys, thetas, chunk: int = 4096, device="cuda"):
     """Exact float64 log-posteriors of ``kernel`` at per-lightcurve
     parameters ``thetas`` (B, D) for lightcurves ``ys``/``dys`` (B, N)
     sharing ``times``; numpy (B,)."""
@@ -117,6 +118,8 @@ class LRTResult:
     alt_sim_loglikes: np.ndarray
     t_obs_posterior: float = None
     p_value_posterior: float = None
+    sim_rates: np.ndarray = field(repr=False, default=None)
+    sim_dy: np.ndarray = field(repr=False, default=None)
     timings: dict = field(default_factory=dict)
 
 
@@ -194,7 +197,7 @@ def batched_max_loglike(
 
 def fit_lightcurves_batch(
     kernel, times, ys, dys, theta0, walkers: int = 12, n_steps: int = 500, percent: float = 0.1,
-    chunk: int = 512, dtype=None, early_stop=None, seed: int = 0, device="cpu",
+    chunk: int = 512, dtype=None, early_stop=None, seed: int = 0, device="cuda",
 ):
     """Max log-likelihood of ``kernel`` fit to each of B lightcurves
     (B, N) sharing ``times``, by ``batched_max_loglike`` over chunks of
@@ -246,7 +249,7 @@ def protassov_lrt(
     keep_simulations: bool = False,
     checkpoint: Optional[str] = None,
     sim_early_stop=(0.01, 50),
-    device="cpu",
+    device="cuda",
 ) -> LRTResult:
     """Run the Protassov LRT end to end on ``device``.
 
@@ -256,19 +259,18 @@ def protassov_lrt(
     chunk ``i``'s refits draw from generators seeded from ``(seed, i)``.
     The refits run in ``sim_dtype`` (float32 by default) and their optima
     are re-evaluated in float64.  ``LRTResult.timings`` holds the seconds
-    of each phase.
+    of each phase.  ``pdf``: the flux PDF of the simulations ("Gaussian",
+    "Lognormal" or "Uniform"); a count of E13 adjustments that hit their
+    iteration limit is reported (warned) once, at the end.
+    ``keep_simulations``: return every simulated lightcurve in
+    ``LRTResult.sim_rates`` / ``sim_dy`` (numpy, (nsims, n)).
 
-    Not ported yet, and refused: ``pdf`` other than Gaussian,
-    ``checkpoint``, ``keep_simulations=True``.
+    Not ported yet, and refused: ``checkpoint``.
     """
     if nsims < 1:
         raise ValueError("nsims must be >= 1 (the p-value is the tail fraction of the simulated T distribution)")
-    if pdf.lower() != "gaussian":
-        raise NotImplementedError("non-Gaussian PDFs are not ported yet (ROADMAP queue 1, item 9: E13 path)")
     if checkpoint is not None:
         raise NotImplementedError("checkpoint/resume is not ported yet (ROADMAP queue 1, item 7)")
-    if keep_simulations:
-        raise NotImplementedError("keep_simulations=True is not ported yet (ROADMAP queue 1, item 7)")
     device = torch.device(device)
     t_start = time.monotonic()
 
@@ -316,7 +318,7 @@ def protassov_lrt(
 
     n_rows = nsims + (1 if matched_estimator else 0)
     n_chunks = -(-n_rows // chunk)
-    null_parts, alt_parts = [], []
+    null_parts, alt_parts, kept_rates, kept_dy = [], [], [], []
     for ci in range(n_chunks):
         s0 = ci * chunk
         count = max(0, min((ci + 1) * chunk, nsims) - s0)
@@ -324,6 +326,9 @@ def protassov_lrt(
         clock = time.perf_counter()
         if count:
             rates, dys = gen(param_samples[s0 : s0 + count], _derived_generator(device, seed + 1, ci))
+            if keep_simulations:
+                kept_rates.append(rates.cpu().numpy())
+                kept_dy.append(dys.cpu().numpy())
             if last:
                 rates, dys = torch.cat([rates, obs_y]), torch.cat([dys, obs_dy])
         else:  # an observed-only final chunk (nsims a multiple of chunk)
@@ -362,6 +367,7 @@ def protassov_lrt(
     if matched_estimator:
         ll0_obs, ll1_obs = null_lls[-1], alt_lls[-1]
         null_lls, alt_lls = null_lls[:-1], alt_lls[:-1]
+    gen.report_nonconverged()
 
     # 5. T distribution and p-values
     t_dist = -2.0 * (null_lls - alt_lls)
@@ -381,5 +387,7 @@ def protassov_lrt(
         alt_sim_loglikes=alt_lls,
         t_obs_posterior=float(t_obs),
         p_value_posterior=float(p_posterior),
+        sim_rates=np.concatenate(kept_rates) if keep_simulations else None,
+        sim_dy=np.concatenate(kept_dy) if keep_simulations else None,
         timings=timings,
     )

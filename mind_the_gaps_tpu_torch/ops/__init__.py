@@ -3,5 +3,13 @@ from mind_the_gaps_tpu_torch.ops.celerite import (
     celerite_log_likelihood,
     celerite_log_likelihood_plain,
 )
+from mind_the_gaps_tpu_torch.ops.sort import rank_remap, rank_remap_plain, sort_kv, sort_kv_plain
 
-__all__ = ["celerite_log_likelihood", "celerite_log_likelihood_plain"]
+__all__ = [
+    "celerite_log_likelihood",
+    "celerite_log_likelihood_plain",
+    "sort_kv",
+    "sort_kv_plain",
+    "rank_remap",
+    "rank_remap_plain",
+]

@@ -15,8 +15,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import List
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "load_library"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "load_library"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -54,19 +55,28 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the keyed library exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+def build(*names: str) -> List[Path]:
+    """Compile each ``csrc/<name>.cu`` whose keyed library does not exist,
+    one ``nvcc`` per source, all started together."""
+    outs = [library_path(name) for name in names]
+    running = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        running.append((name, out, tmp, subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in running:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -74,6 +84,6 @@ def load_library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build(name)[0]))
             _loaded[name] = lib
         return lib

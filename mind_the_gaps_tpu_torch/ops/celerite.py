@@ -12,11 +12,16 @@ per group, per-element (B, N)).  ``dt`` is formed from ``t`` in float64
 and then cast to the working dtype (float32 or float64, that of the
 coefficients).
 
+``sym=False`` selects the kernel body that keeps the state S as the full
+R x R instead of packed (the JAX entry's dense-S body); both compute the
+same function.
+
 A CPU tensor goes to the plain PyTorch version
-(``celerite_log_likelihood_plain``, the recursion of ``solver.batched``).
-A CUDA tensor launches ``csrc/celerite_loglike.cu`` on the current stream,
-or raises: there is no fallback.  ``celerite_log_likelihood.launches``
-counts the kernel launches.
+(``celerite_log_likelihood_plain``, the recursion of ``solver.batched``)
+whatever ``sym``.  A CUDA tensor launches ``csrc/celerite_loglike.cu`` on
+the current stream, or raises: there is no fallback.
+``celerite_log_likelihood.launches`` counts the launches of the packed
+body, ``.dense_launches`` those of the dense-S body.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ celerite_log_likelihood_plain = batched_log_likelihood
 
 _ENTRY = {torch.float32: "celerite_loglike_f32", torch.float64: "celerite_loglike_f64"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+_ARGTYPES = [_I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
 
 
 def _entry(dtype):
@@ -52,7 +57,7 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def celerite_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None):
+def celerite_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None, sym: bool = True):
     """(B,) log-likelihoods; -inf where K(theta_b) is not positive definite."""
     ar = coeffs[0]
     if ar.device.type == "cpu":
@@ -94,14 +99,18 @@ def celerite_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, ext
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _entry(dtype)(
-            Jr, Jc, dt.data_ptr(), y_t.data_ptr(), y_cols, d_t.data_ptr(), d_cols,
+            Jr, Jc, 0 if sym else 1, dt.data_ptr(), y_t.data_ptr(), y_cols, d_t.data_ptr(), d_cols,
             *(c.data_ptr() for c in cs), _ptr(mean), _ptr(extra_diag),
             B, N, repeats, out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"celerite_loglike kernel launch failed (code {rc})")
-    celerite_log_likelihood.launches += 1
+    if sym:
+        celerite_log_likelihood.launches += 1
+    else:
+        celerite_log_likelihood.dense_launches += 1
     return out
 
 
 celerite_log_likelihood.launches = 0
+celerite_log_likelihood.dense_launches = 0

@@ -1,7 +1,11 @@
-"""Lightcurve simulation: TK95 with observational noise (Gaussian PDF)."""
+"""Lightcurve simulation: TK95, the E13 flux-PDF adjustment, observational noise."""
 from mind_the_gaps_tpu_torch.simulator.core import (
+    E13Simulator,
     Simulator,
+    TK95Simulator,
     downsample_cumsum,
+    e13_adjust,
+    e13_adjust_batch,
     tk95_rates,
 )
 from mind_the_gaps_tpu_torch.simulator.noise import (
@@ -19,6 +23,10 @@ __all__ = [
     "KraftNoise",
     "GaussianNoise",
     "Simulator",
+    "TK95Simulator",
+    "E13Simulator",
     "tk95_rates",
     "downsample_cumsum",
+    "e13_adjust",
+    "e13_adjust_batch",
 ]

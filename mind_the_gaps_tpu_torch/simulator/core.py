@@ -1,6 +1,6 @@
-"""TK95 lightcurve simulator, batched on tensors (Gaussian flux PDF).
+"""TK95 / E13 lightcurve simulator, batched on tensors.
 
-PyTorch port of the Gaussian path of ``mind_the_gaps_tpu/simulator/core.py``:
+PyTorch port of ``mind_the_gaps_tpu/simulator/core.py``:
 
 - the Timmer & Koenig (1995) frequency-domain draw and ``irfft`` for a
   batch of PSDs (``tk95_rates``), in float64;
@@ -8,31 +8,46 @@ PyTorch port of the Gaussian path of ``mind_the_gaps_tpu/simulator/core.py``:
   the observation start, after which the fine grid sits at fixed offsets
   from every exposure bin, so resampling is a cumulative sum over static
   index windows (``downsample_cumsum``);
+- non-Gaussian flux PDFs: the Emmanoulopoulos+13 amplitude / rank-order
+  iteration (``e13_adjust_batch``) in lock-step over a chunk of segments,
+  its rank-order remap through ``ops.rank_remap`` (the CUDA sort kernel
+  on CUDA tensors);
 - observational noise from ``simulator/noise.py``.
 
 The ``Simulator`` geometry (fine-grid step, the next 5-smooth FFT length,
-segment length, window starts/ends, angular frequencies) is computed in
-numpy exactly as in the JAX package: it changes the simulated series.
+segment length, the E13 power-of-two cut, window starts/ends, angular
+frequencies) is computed in numpy exactly as in the JAX package: it
+changes the simulated series.
 
-The random numbers (the spectral normals and the cut shifts) may be
-passed in as tensors, so a test can give both packages the same draws.
-Non-Gaussian PDFs (the Emmanoulopoulos+13 path) are not ported yet.
+The random numbers (the spectral normals, the cut shifts and the PDF
+draws) may be passed in as tensors, so a test can give both packages the
+same draws.
 """
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
+from mind_the_gaps_tpu_torch.ops import rank_remap, sort_kv
 from mind_the_gaps_tpu_torch.simulator.noise import GaussianNoise, KraftNoise, PoissonNoise
 from mind_the_gaps_tpu_torch.simulator.regular import RegularLightcurve
+from mind_the_gaps_tpu_torch.stats import create_log_normal, create_uniform_distribution, sample_pdf
 
-__all__ = ["Simulator", "tk95_rates", "downsample_cumsum"]
+__all__ = [
+    "Simulator",
+    "TK95Simulator",
+    "E13Simulator",
+    "tk95_rates",
+    "downsample_cumsum",
+    "e13_adjust",
+    "e13_adjust_batch",
+]
 
 _SQRT_2PI = math.sqrt(2.0 * math.pi)
-_E13_TODO = "non-Gaussian PDFs (E13) are not ported yet (ROADMAP queue 1, item 9: E13 path)"
 
 
 def tk95_rates(psd_values, n_fft: int, dt: float, normals=None, generator: Optional[torch.Generator] = None):
@@ -69,9 +84,142 @@ def downsample_cumsum(segment_rates, starts, ends):
     return (cs[..., ends] - cs[..., starts]) / (ends - starts).to(segment_rates.dtype)
 
 
+def _apply_rank_permutation(order, sorted_draws):
+    """``out[b, order[b, i]] = sorted_draws[b, i]``: a scatter within each
+    row (float64, outside the kernel, as in the JAX package)."""
+    return torch.empty_like(sorted_draws).scatter_(-1, order, sorted_draws)
+
+
+def e13_adjust_batch(segments, pdf: str, mean, max_iter: int, rtol=1e-4, atol=1e-8,
+                     generator: Optional[torch.Generator] = None, draws=None, std=None):
+    """Emmanoulopoulos+13 adjustment of a (B, m) chunk of segments, in
+    lock-step: returns (adjusted (B, m) float64, iterations (B,) int32).
+
+    Target amplitudes from each segment's spectrum, phases and the value
+    ranking from draws of the target PDF, moment-matched to (``mean``, the
+    segment's std, or ``std`` when given).  ``draws`` (B, m) are the standard
+    draws of ``stats.sample_pdf`` (else drawn from ``generator``).  The
+    spectral step and the remap run in float32; every iterate is a
+    permutation of the draws, and the output permutes the full-precision
+    float64 draws.  A row stops (freezes) once its iterate moves by no more
+    than ``atol + rtol |x|`` or after ``max_iter`` iterations, so each row's
+    result does not depend on the other rows of the chunk.  The loop checks
+    on the host after each iteration whether any row is still active.
+    """
+    B, m = segments.shape
+    namp = m // 2 + 1
+    sample_std = (segments.std(dim=-1, correction=0) if std is None
+                  else torch.as_tensor(std, dtype=torch.float64, device=segments.device))
+    xsim = sample_pdf(pdf, mean, sample_std.reshape(-1, 1), (B, m), generator=generator, draws=draws)
+    amplitudes_norm = torch.abs(torch.fft.rfft(segments.float(), dim=-1)) / namp
+    # descending float64 draws (a loop constant): every iterate is a
+    # permutation of them, so one sort per iteration is enough
+    _, sorted_draws = sort_kv(-xsim, xsim)
+    sorted_draws32 = sorted_draws.float()
+
+    def spectral_step(x32):
+        phases = torch.angle(torch.fft.rfft(x32, dim=-1))
+        adj = torch.fft.irfft(amplitudes_norm * torch.exp(1j * phases), n=m, dim=-1)
+        order, xnew = rank_remap(adj, sorted_draws32)
+        return xnew, order
+
+    def moved(new, old):
+        return ~torch.all(torch.abs(new - old) <= atol + rtol * torch.abs(old), dim=-1)
+
+    xprev = xsim.float()
+    xadj, order = spectral_step(xprev)
+    iters = torch.zeros(B, dtype=torch.int32, device=segments.device)
+    active = moved(xadj, xprev) & (max_iter > 0)
+    while bool(active.any()):
+        xnew, order_new = spectral_step(xadj)
+        a = active[:, None]
+        xprev = torch.where(a, xadj, xprev)
+        xadj = torch.where(a, xnew, xadj)
+        order = torch.where(a, order_new, order)
+        iters = torch.where(active, iters + 1, iters)
+        active = active & moved(xadj, xprev) & (iters < max_iter)
+    return _apply_rank_permutation(order, sorted_draws), iters
+
+
+def e13_adjust(segment_rates, pdf: str, mean, max_iter: int, std=None, rtol=1e-4, atol=1e-8,
+               generator: Optional[torch.Generator] = None, draws=None):
+    """``e13_adjust_batch`` of one (m,) segment: (adjusted (m,), iterations)."""
+    out, iters = e13_adjust_batch(
+        segment_rates[None], pdf, mean, max_iter, rtol=rtol, atol=atol, generator=generator,
+        draws=None if draws is None else draws[None], std=std,
+    )
+    return out[0], int(iters[0])
+
+
+class BaseSimulatorMethod:
+    def __init__(self, mean):
+        self.meanrate = mean
+
+    def adjust_pdf(self, segment):
+        raise NotImplementedError("This method should be implemented by subclasses")
+
+
+class TK95Simulator(BaseSimulatorMethod):
+    """Gaussian flux PDF: the TK95 series already has it; no-op."""
+
+    def __init__(self, mean, random_state=None):
+        super().__init__(mean)
+
+    def adjust_pdf(self, segment):
+        return segment
+
+
+class E13Simulator(BaseSimulatorMethod):
+    """Non-Gaussian flux PDFs by the E13 iteration, for one regularly
+    sampled segment at a time on ``device``."""
+
+    def __init__(self, mean, pdf: str, max_iter: int = 1000, random_state=None, device="cuda"):
+        super().__init__(mean)
+        if pdf not in ("lognormal", "uniform", "gaussian"):
+            raise ValueError("pdf must be one of 'lognormal', 'uniform', 'gaussian'")
+        self.pdf = pdf
+        self.max_iter = max_iter
+        if pdf == "lognormal":
+            self.pdfmethod = create_log_normal
+        elif pdf == "uniform":
+            self.pdfmethod = create_uniform_distribution
+        else:
+            from scipy.stats import norm
+
+            self.pdfmethod = norm
+        self.device = torch.device(device)
+        self._seed = int(np.random.SeedSequence(random_state).entropy % (2**63))
+        self._generator = None  # made at first use, on the device
+
+    def _adjust(self, lc: RegularLightcurve, mean, max_iter, std=None):
+        if self._generator is None:
+            self._generator = torch.Generator(self.device).manual_seed(self._seed)
+        x = torch.as_tensor(lc.countrate, dtype=torch.float64, device=self.device)
+        adjusted, iters = e13_adjust(x, self.pdf, mean, max_iter, std=std, generator=self._generator)
+        return RegularLightcurve(lc.time, adjusted.cpu().numpy(), dt=lc.dt), iters
+
+    def adjust_pdf(self, segment: RegularLightcurve) -> RegularLightcurve:
+        out, iters = self._adjust(segment, self.meanrate, self.max_iter)
+        if iters == self.max_iter:
+            warnings.warn(
+                "Lightcurve did not converge after %d iterations, PDF might be inaccurate. "
+                "Try increase the maximum number of iterations" % iters
+            )
+        return out
+
+    def adjust_lightcurve_pdf(self, lc: RegularLightcurve, pdf, max_iter: int = 400):
+        """The reference's adjust_lightcurve_pdf: ``pdf`` a scipy
+        distribution whose mean and std are the targets."""
+        return self._adjust(lc, float(pdf.mean()), max_iter, std=float(pdf.std()))[0]
+
+
 class Simulator:
-    """Simulate lightcurves with a given PSD over a real observing pattern
-    (timestamps and exposures), with noise.  Gaussian flux PDF only."""
+    """Simulate lightcurves with a given PSD and flux PDF over a real
+    observing pattern (timestamps and exposures), with noise.
+
+    The batched path (``simulate_batch``) runs on the device of the PSD
+    tensor it is given.  ``simulator`` (the single-segment PDF adjustment
+    of the reference's API) runs on ``device``."""
 
     def __init__(
         self,
@@ -88,6 +236,7 @@ class Simulator:
         epsilon: float = 1.001,
         max_iter: int = 400,
         random_state: Union[int, None] = None,
+        device="cuda",
     ):
         times = np.asarray(times, dtype=float)
         if extension_factor < 1:
@@ -104,8 +253,10 @@ class Simulator:
         )
         if pdf.lower() not in ("gaussian", "lognormal", "uniform"):
             raise ValueError("%s not implemented! Currently implemented: Gaussian, Uniform or Lognormal" % pdf)
-        if pdf.lower() != "gaussian":
-            raise NotImplementedError(_E13_TODO)
+        if pdf.lower() == "gaussian":
+            self.simulator = TK95Simulator(mean)
+        else:
+            self.simulator = E13Simulator(mean, pdf.lower(), max_iter=max_iter, device=device)
 
         seed = int(np.random.SeedSequence(random_state).entropy % (2**63))
         self._generator = torch.Generator().manual_seed(seed)
@@ -162,6 +313,18 @@ class Simulator:
         self._seg_times = seg_times
         self._omega = 2.0 * np.pi * np.fft.rfftfreq(self.fftndatapoints, self.sim_dt)
 
+        # the E13 cut: a power-of-two window when the fine grid is long
+        # enough (the JAX package's rule, kept because it changes the
+        # series); the windows only index its first _segment_len samples
+        m = self._segment_len
+        self._e13_cut_len = m
+        if pdf.lower() != "gaussian":
+            p2 = 1 << (m - 1).bit_length()
+            if p2 <= self.fftndatapoints:
+                self._e13_cut_len = p2
+        self._nonconv_total = None  # device count of rows that hit max_iter
+        self._last_e13_iters = None  # iteration counts of the last batch
+
     # ------------------------------------------------------------------ #
     def __str__(self):
         return f"Simulator(\n  PSD Model: {self._psd_model}\n  PDF: {self.pdf}\n) Noise: {self.noise.name}"
@@ -184,14 +347,45 @@ class Simulator:
     # ------------------------------------------------------------------ #
     # batched path
     # ------------------------------------------------------------------ #
+    def _e13_chunk_default(self) -> int:
+        """Lock-step chunk width of the E13 batch by cut length: about 4M
+        resident elements a chunk, between 128 and 512 rows (the JAX
+        package's rule)."""
+        m = max(int(self._e13_cut_len or self._segment_len), 1)
+        return int(max(128, min(512, 1 << int(math.log2(max(4_194_304 // m, 1))))))
+
+    def report_nonconverged(self, warn: bool = True) -> int:
+        """Number of simulated lightcurves whose E13 adjustment hit
+        ``max_iter`` since the last report (one fetch from the device);
+        warns like the reference's per-lightcurve message."""
+        if self._nonconv_total is None:
+            return 0
+        count = int(self._nonconv_total)
+        self._nonconv_total = None
+        if count and warn:
+            warnings.warn(
+                "%d simulated lightcurve(s) did not converge after %d iterations, "
+                "PDF might be inaccurate. Try increase the maximum number of "
+                "iterations" % (count, self.max_iter)
+            )
+        return count
+
     def simulate_batch(self, psd_values_batch, generator: Optional[torch.Generator] = None,
-                       mean=None, normals=None, shifts=None):
+                       mean=None, normals=None, shifts=None, pdf_draws=None,
+                       chunk: Optional[int] = None, warn_nonconverged: bool = True):
         """(B, n_freq) PSD values -> (B, n_times) noiseless rates on their
-        device.  ``normals`` (B, 2, n_freq) and ``shifts`` (B,) in time
-        units replace the draws from ``generator`` when given."""
+        device.  ``normals`` (B, 2, n_freq), ``shifts`` (B,) in time units
+        and, for a non-Gaussian PDF, ``pdf_draws`` (B, cut length) replace
+        the draws from ``generator`` when given.
+
+        A non-Gaussian PDF runs the E13 adjustment in lock-step chunks of
+        ``chunk`` rows (default ``_e13_chunk_default``).  The count of rows
+        that hit ``max_iter`` accumulates on the device and is reported now
+        (``warn_nonconverged``) or by a later ``report_nonconverged``; the
+        iteration counts of this batch stay in ``_last_e13_iters``."""
         psd = torch.as_tensor(psd_values_batch)
         B, device = psd.shape[0], psd.device
-        n_fft, dt, m = self.fftndatapoints, self.sim_dt, self._segment_len
+        n_fft, dt, m = self.fftndatapoints, self.sim_dt, self._e13_cut_len
         grid_t0 = float(self.sim_timestamps[0])
         grid_t1 = float(self.sim_timestamps[-1])
         mean_v = float(self.mean if mean is None else mean)
@@ -206,7 +400,24 @@ class Simulator:
         segment = torch.gather(rate, 1, k0[:, None] + torch.arange(m, device=device)[None, :])
         starts = torch.as_tensor(self._win_starts, device=device)
         ends = torch.as_tensor(self._win_ends, device=device)
-        return downsample_cumsum(segment, starts, ends)
+        if self.pdf.lower() == "gaussian":
+            return downsample_cumsum(segment, starts, ends)
+
+        chunk = self._e13_chunk_default() if chunk is None else chunk
+        outs, iters = [], []
+        for s0 in range(0, B, chunk):
+            adj, it = e13_adjust_batch(
+                segment[s0 : s0 + chunk], self.pdf.lower(), mean_v, self.max_iter, generator=generator,
+                draws=None if pdf_draws is None else pdf_draws[s0 : s0 + chunk],
+            )
+            outs.append(downsample_cumsum(adj, starts, ends))
+            iters.append(it)
+        self._last_e13_iters = torch.cat(iters)
+        count = torch.sum(self._last_e13_iters >= self.max_iter)
+        self._nonconv_total = count if self._nonconv_total is None else self._nonconv_total + count
+        if warn_nonconverged:
+            self.report_nonconverged()
+        return torch.cat(outs)
 
     def add_noise_batch(self, rates_batch, generator: Optional[torch.Generator] = None):
         return self.noise.add_noise_torch(rates_batch, generator)

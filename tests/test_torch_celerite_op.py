@@ -1,7 +1,7 @@
 """The celerite op: its plain version against the JAX package's Pallas
 kernel (interpret mode on the CPU), the float32 contract, the CPU routing
-and the launch counter; and, on a CUDA card, the kernel against its plain
-version.
+and the launch counters; and, on a CUDA card, the kernel (its packed and
+its dense-S body) against its plain version.
 
 Tolerances: float64 rtol 1e-10; float32 rtol 1e-4, atol 1e-2 (those of
 tests/test_pallas_grouped.py); float32 against float64 within 0.5 in
@@ -119,10 +119,12 @@ def test_f32_tracks_f64_long_baseline():
 
 def test_cpu_tensors_use_the_plain_version_and_do_not_count():
     _, torch_in = _case(1, 1, "grouped", torch.float64, seed=5, n=20)
-    before = celerite_log_likelihood.launches
+    before = (celerite_log_likelihood.launches, celerite_log_likelihood.dense_launches)
     out = celerite_log_likelihood(**torch_in)
-    assert celerite_log_likelihood.launches == before
+    dense = celerite_log_likelihood(**torch_in, sym=False)
+    assert (celerite_log_likelihood.launches, celerite_log_likelihood.dense_launches) == before
     torch.testing.assert_close(out, celerite_log_likelihood_plain(**torch_in), rtol=0, atol=0)
+    torch.testing.assert_close(dense, out, rtol=0, atol=0)
 
 
 def test_non_pd_and_bad_layouts():
@@ -155,6 +157,22 @@ def test_kernel_matches_plain_on_card(cuda, jr, jc, layout, dtype):
     out = celerite_log_likelihood(**on_card)
     torch.cuda.synchronize()
     assert celerite_log_likelihood.launches == before + 1
+    ref = celerite_log_likelihood_plain(**on_card)
+    tol = dict(rtol=1e-10, atol=0.0) if dtype == torch.float64 else dict(rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(out, ref, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jr,jc,layout,dtype", CASES)
+def test_dense_s_kernel_matches_plain_on_card(cuda, jr, jc, layout, dtype):
+    """The dense-S body (``sym=False``) against the plain version."""
+    _, torch_in = _case(jr, jc, layout, dtype, seed=8)
+    on_card = {k: (v.to(cuda) if torch.is_tensor(v) else v) for k, v in torch_in.items()}
+    on_card["coeffs"] = type(torch_in["coeffs"])(*(x.to(cuda) for x in torch_in["coeffs"]))
+    before = celerite_log_likelihood.dense_launches
+    out = celerite_log_likelihood(**on_card, sym=False)
+    torch.cuda.synchronize()
+    assert celerite_log_likelihood.dense_launches == before + 1
     ref = celerite_log_likelihood_plain(**on_card)
     tol = dict(rtol=1e-10, atol=0.0) if dtype == torch.float64 else dict(rtol=1e-4, atol=1e-2)
     torch.testing.assert_close(out, ref, **tol)

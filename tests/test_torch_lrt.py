@@ -69,7 +69,7 @@ def test_map_fit_matches_jax():
     kj, _ = _kernels(jk)
     kt, _ = _kernels(tk)
     ref = JGP(lc, kj).fit()
-    out = TGP(lightcurve_from_jax(lc), kt).fit()
+    out = TGP(lightcurve_from_jax(lc), kt, device="cpu").fit()
     assert out.success
     np.testing.assert_allclose(-out.fun, -ref.fun, rtol=0, atol=1e-6)
     np.testing.assert_allclose(out.x, ref.x, atol=1e-3)
@@ -79,7 +79,7 @@ def test_observed_sampling_matches_jax_by_distribution():
     lc = _drw_lc(seed=3, n=60)
     kj, _ = _kernels(jk)
     kt, _ = _kernels(tk)
-    gj, gt = JGP(lc, kj), TGP(lightcurve_from_jax(lc), kt)
+    gj, gt = JGP(lc, kj), TGP(lightcurve_from_jax(lc), kt, device="cpu")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # short chains: "did not converge"
         gj.derive_posteriors(seed=3, max_steps=100, convergence_steps=50, walkers=8)
@@ -102,7 +102,7 @@ def test_loglikes_f64_at_matches_jax():
     thetas = kj.get_parameter_vector() + 0.1 * rng.normal(size=(6, 5))
     thetas[0, 0] = 11.0  # outside the prior bounds: -inf in both
     ref = j_loglikes_f64_at(kj, lc.times, ys, dys, thetas)
-    out = loglikes_f64_at(kt, lc.times, ys, dys, thetas, chunk=4)
+    out = loglikes_f64_at(kt, lc.times, ys, dys, thetas, chunk=4, device="cpu")
     assert out[0] == ref[0] == -np.inf
     np.testing.assert_allclose(out[1:], ref[1:], rtol=1e-9)
 
@@ -133,9 +133,9 @@ def test_fit_lightcurves_batch_per_row_starts():
     ys = lc.y[None, :] + rng.normal(0, 0.3, (5, lc.n))
     starts = np.array([1.0, -3.0]) + 0.1 * rng.normal(size=(5, 2))
     lls, xs = fit_lightcurves_batch(kt, lc.times, ys, np.full((5, lc.n), 0.3), starts,
-                                    walkers=8, n_steps=10, chunk=3, seed=2)
+                                    walkers=8, n_steps=10, chunk=3, seed=2, device="cpu")
     assert lls.shape == (5,) and xs.shape == (5, 2) and np.all(np.isfinite(lls))
-    f64 = loglikes_f64_at(kt, lc.times, ys, np.full((5, lc.n), 0.3), xs)
+    f64 = loglikes_f64_at(kt, lc.times, ys, np.full((5, lc.n), 0.3), xs, device="cpu")
     np.testing.assert_allclose(lls, f64, rtol=1e-10)  # float64 chains: the same values
     rows = _alt_theta0_rows(kt, alt, starts)
     np.testing.assert_array_equal(rows[:, :2], starts)
@@ -164,10 +164,11 @@ def test_protassov_lrt_ab_against_jax():
     for _ in range(2):
         models = []
         for gj, kern in ((ref.null_model, null_t), (ref.alt_model, alt_t)):
-            gt = TGP(lc_t, kern)
+            gt = TGP(lc_t, kern, device="cpu")
             posteriors_from_jax(gj, gt)
             models.append(gt)
-        results.append(protassov_lrt(lc_t, null_t, alt_t, null_model=models[0], alt_model=models[1], **settings))
+        results.append(protassov_lrt(lc_t, null_t, alt_t, null_model=models[0], alt_model=models[1], device="cpu",
+                                     **settings))
     a, b = results
     assert a.t_obs_posterior == ref.t_obs_posterior  # the carried posteriors
     np.testing.assert_allclose(a.t_obs, ref.t_obs, atol=4.0)
@@ -181,13 +182,39 @@ def test_protassov_lrt_ab_against_jax():
 def test_options_not_ported_are_refused():
     lc = lightcurve_from_jax(_drw_lc(seed=10, n=30))
     null_t, alt_t = _kernels(tk)
-    for kwargs in (dict(pdf="Lognormal"), dict(checkpoint="x.npz"), dict(keep_simulations=True)):
-        with pytest.raises(NotImplementedError):
-            protassov_lrt(lc, null_t, alt_t, nsims=2, **kwargs)
-    gp = TGP(lc, null_t)
+    with pytest.raises(NotImplementedError):
+        protassov_lrt(lc, null_t, alt_t, nsims=2, checkpoint="x.npz", device="cpu")
+    gp = TGP(lc, null_t, device="cpu")
     with pytest.raises(NotImplementedError):
         gp.derive_posteriors(chains=2, fit=False, max_steps=10)
     with pytest.raises(NotImplementedError):
-        TGP(lc, null_t, mean_model="constant").derive_posteriors(fit=False, max_steps=10)
-    with pytest.raises(NotImplementedError):
-        gp.make_device_generator("Lognormal")
+        TGP(lc, null_t, mean_model="constant", device="cpu").derive_posteriors(fit=False, max_steps=10)
+
+
+def test_entry_points_default_to_cuda():
+    """Every public function or class of the port that takes ``device``
+    runs on the card unless the caller asks for the CPU (signatures only:
+    nothing runs here)."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import mind_the_gaps_tpu_torch as pkg
+
+    found = {}
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        mod = importlib.import_module(info.name)
+        for name in getattr(mod, "__all__", ()):
+            obj = getattr(mod, name)
+            fns = [obj] if inspect.isfunction(obj) else [
+                f for f in vars(obj).values() if inspect.isfunction(f)
+            ] if inspect.isclass(obj) else []
+            for fn in fns:
+                param = inspect.signature(fn).parameters.get("device")
+                if param is not None and param.default is not inspect.Parameter.empty:
+                    found[f"{info.name}.{fn.__qualname__}"] = param.default
+    for entry in ("lrt.protassov_lrt", "lrt.fit_lightcurves_batch", "lrt.loglikes_f64_at",
+                  "gpmodelling.GPModelling.__init__", "simulator.core.E13Simulator.__init__",
+                  "simulator.core.Simulator.__init__"):
+        assert f"mind_the_gaps_tpu_torch.{entry}" in found, entry
+    assert all(default == "cuda" for default in found.values()), found

@@ -1,4 +1,5 @@
-"""Port parity: the TK95 simulator (Gaussian flux PDF).
+"""Port parity: the TK95 simulator (Gaussian flux PDF; the E13 path is in
+test_torch_e13.py).
 
 - The geometry (fine-grid step, FFT length, segment length, window starts
   and ends, angular frequencies) equals the JAX package's exactly.
@@ -57,7 +58,7 @@ def test_geometry_equal(name):
     times, exposures = kw.pop("times"), kw.pop("exposures")
     psd = psd_models.PowerLaw(amplitude=10, alpha=1)
     a = JSimulator(psd, times, exposures, 5.0, "Gaussian", **kw)
-    b = Simulator(psd, times, exposures, 5.0, "Gaussian", **kw)
+    b = Simulator(psd, times, exposures, 5.0, "Gaussian", device="cpu", **kw)
     assert a.sim_dt == b.sim_dt
     assert a.fftndatapoints == b.fftndatapoints
     assert a._segment_len == b._segment_len
@@ -84,7 +85,7 @@ def test_pipeline_with_jax_draws():
     t, _ = _pattern()
     psd_model = psd_models.BendingPowerlaw(S0=5.0, omega0=0.05)
     a = JSimulator(psd_model, t, 1.0, 7.0, "Gaussian", extension_factor=2.0)
-    b = Simulator(psd_model, t, 1.0, 7.0, "Gaussian", extension_factor=2.0)
+    b = Simulator(psd_model, t, 1.0, 7.0, "Gaussian", extension_factor=2.0, device="cpu")
     psd = np.asarray(a._psd_values())
     keys = jax.random.split(jax.random.key(9), 3)
     normals, shifts, ref = [], [], []
@@ -122,7 +123,7 @@ def test_powerspectrum_normalization():
     exposures = 0.8
     times = np.arange(0, 1000, exposures)
     simu = Simulator(psd_model, times, exposures, 10000, "Gaussian", extension_factor=1.05,
-                     aliasing_factor=8, random_state=1)
+                     aliasing_factor=8, random_state=1, device="cpu")
     lc = simu.simulate_regularly_sampled()
     freqs = np.fft.rfftfreq(lc.n, lc.dt)
     pow_spec = (np.absolute(np.fft.rfft(lc.countrate)[1:])) ** 2
@@ -136,7 +137,8 @@ def test_ensemble_mean_and_variance():
     variance, mean = 10, 1
     timestamps = np.arange(0, 8500, 1.0)
     psd_model = psd_models.BendingPowerlaw(S0=variance, omega0=np.exp(-3))
-    simu = Simulator(psd_model, timestamps, 1.0, mean, "Gaussian", extension_factor=1.05, aliasing_factor=1)
+    simu = Simulator(psd_model, timestamps, 1.0, mean, "Gaussian", extension_factor=1.05, aliasing_factor=1,
+                     device="cpu")
     psd = simu._psd_values()
     rates = simu.simulate_batch(psd.expand(100, -1), generator=torch.Generator().manual_seed(3)).numpy()
     vars_, means = rates.var(axis=1), rates.mean(axis=1)
@@ -157,5 +159,7 @@ def test_noise_models():
 
 
 def test_non_gaussian_pdf_is_refused():
-    with pytest.raises(NotImplementedError):
-        Simulator(psd_models.PowerLaw(), np.arange(0, 10, 1.0), 1.0, 5.0, "Lognormal")
+    """Lognormal and uniform PDFs are ported (tests/test_torch_e13.py);
+    any other PDF is refused, as in the JAX package."""
+    with pytest.raises(ValueError, match="not implemented"):
+        Simulator(psd_models.PowerLaw(), np.arange(0, 10, 1.0), 1.0, 5.0, "Cauchy", device="cpu")
