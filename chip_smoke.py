@@ -11,10 +11,15 @@ Phases, each printed with its seconds:
    one process per source, all started together, into
    ``mind_the_gaps_tpu_torch/_build`` (keyed by a hash of the source);
 3. kernels against plain: ``celerite_log_likelihood`` (packed and dense-S
-   bodies), ``rank_remap`` and ``sort_kv`` (the CUDA kernels) against their
-   plain PyTorch versions on the same tensors on the card, at the shapes of
-   the main paths, each with both times from CUDA events; the sorts must be
-   equal to their plain versions (``torch.equal``);
+   bodies, every layout, the compile-time widths up to R = 8 and the
+   runtime-R body), ``rank_remap`` and ``sort_kv`` (the CUDA kernels, every
+   tier and its edges) against their plain PyTorch versions on the same
+   tensors on the card, at the shapes of the main paths, each with both
+   times from CUDA events and, where PERF.md has one, the time before the
+   redesign of the hand-written kernels (PERF.md section 6); the sorts
+   must be equal to their plain versions (``torch.equal``); then the two
+   celerite layouts (32 or 8 lanes per likelihood) timed at the batches
+   on either side of the crossover of ``ops.celerite.team_size``;
 4. Gaussian main path: ``protassov_lrt(..., device="cuda")`` on the lrt_512
    scenario (N=5000 DRW-true data, DRW null, DRW+Lorentzian alternative,
    512 simulations), with the kernels' launch counts over that run;
@@ -40,12 +45,35 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-CELERITE_SOURCE = "mind_the_gaps_tpu_torch/csrc/celerite_loglike.cu"
+CELERITE_SOURCE = "mind_the_gaps_tpu_torch/csrc/celerite_loglike.cuh"
 SORT_SOURCE = "mind_the_gaps_tpu_torch/csrc/bitonic_sort.cu"
 # the card's published peaks (H100 SXM data sheet, at the 700 W limit):
 # memory, and float32 / float64 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = {4: 67e12, 8: 34e12}
+# The kernels' times before their redesign, quoted from PERF.md section 6
+# (its previous-design column: NVIDIA H100 80GB HBM3 at 700 W; the observed-fit
+# time is the ~2.33 ms derived there), printed beside this run's; keyed by
+# the start of the case's name
+BEFORE_REDESIGN_MS = {
+    "observed-fit step": 2.33,
+    "bootstrap alt step": 1.904,
+    "float64 refine": 2.510,
+    "dense-S, bootstrap alt step": 1.791,
+    "dense-S, float64 refine": 2.536,
+    "rank_remap (128, 65536) one E13 step": 1.452,
+    "rank_remap (128, 65536) planted": 1.400,
+    "rank_remap (512, 8192)": 0.411,
+    "rank_remap (128, 50011)": 1.383,
+    "sort_kv (128, 65536) f64": 1.713,
+    "sort_kv (128, 16384) f32": 0.220,
+    "sort_kv (64, 8) f32": 0.031,
+}
+
+
+def before_note(name):
+    ms = next((v for k, v in BEFORE_REDESIGN_MS.items() if name.startswith(k)), None)
+    return "" if ms is None else f", before the redesign {ms:.3f} ms (PERF.md)"
 
 
 def check(cond, msg):
@@ -101,7 +129,7 @@ def celerite_step_ops(jr, jc, dense=False):
         + R * sum(row) + s_ops  # P M, then (P M) P^T
         + R * (2 * R - 1) + 2 * R + 2  # S u, u^T S u, D, 1 / D
         + 2 * R + sum(row) + 2 * R + 1 + 2 * R  # f, u^T f, z, W
-        + 12  # the two Kahan sums, log|D| and the pivot test
+        + 6  # log|D|, z^2 / D, a tree add for each sum, the pivot test (Kahan: once a chunk)
     )
 
 
@@ -131,8 +159,10 @@ def kernel_cases(card):
 
     from mind_the_gaps_tpu_torch.kernels import DampedRandomWalk, Lorentzian, RealTerm
     from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood, celerite_log_likelihood_plain
+    from mind_the_gaps_tpu_torch.ops.celerite import TEAMS, _launch, team_size
 
     dev = torch.device("cuda")
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(0)
     t5k = np.cumsum(rng.uniform(2.0, 8.0, 5000))  # the main path's times
     drw = DampedRandomWalk(1.0, -3.0)
@@ -142,6 +172,8 @@ def kernel_cases(card):
         real6 = real6 + RealTerm(0.5 - 0.3 * i, -1.0 - 0.5 * i)
     cplx6 = Lorentzian(-1.0, 2.0, -2.0) + Lorentzian(-0.8, 1.5, -1.6) + Lorentzian(-0.6, 1.0, -1.2)
     slow = DampedRandomWalk(1.0, math.log(2e-6)) + Lorentzian(-1.0, 2.0, math.log(1e-5))
+    drw3l = drw_qpo + Lorentzian(-0.8, 1.5, -1.6) + Lorentzian(-0.6, 1.0, -1.2)  # R = 7
+    wide10 = drw3l + RealTerm(-0.5, -2.0) + Lorentzian(-1.2, 1.2, -1.0)  # R = 10: runtime-R body
 
     def inputs(kernel, B, t, layout, dtype, G=None):
         n = len(t)
@@ -166,6 +198,15 @@ def kernel_cases(card):
         ("float64 refine: per-element B=513 N=5000 R=3 f64", drw_qpo, 513, t5k, "per", f64, None, "same", True),
         ("R=6 Jc=0: shared B=64 N=37 f64", real6, 64, t5k[:37], "shared", f64, None, "same", True),
         ("R=6 Jr=0: shared B=64 N=37 f64", cplx6, 64, t5k[:37], "shared", f64, None, "same", True),
+        ("R=7 DRW+3 Lorentzians: shared B=64 N=5000 f64", drw3l, 64, t5k, "shared", f64, None, "same", True),
+        ("R=7 DRW+3 Lorentzians: grouped G=513x6 N=5000 f32", drw3l, 3078, t5k, "grouped", f32, 513, "same",
+         True),
+        ("R=10 runtime-R body: shared B=16 N=5000 f64", wide10, 16, t5k, "shared", f64, None, "same", True),
+        ("R=10 runtime-R body: grouped G=64x2 N=5000 f32", wide10, 128, t5k, "grouped", f32, 64, "same", True),
+        ("below the layout crossover: grouped G=176x3 (B=528) N=5000 R=3 f32", drw_qpo, 528, t5k, "grouped",
+         f32, 176, "same", True),
+        ("above the layout crossover: grouped G=529x1 (B=529) N=5000 R=3 f32", drw_qpo, 529, t5k, "grouped",
+         f32, 529, "same", True),
         ("f32 against f64: grouped G=513x6 N=5000 R=3", drw_qpo, 3078, t5k, "grouped", f32, 513, "f64", True),
         ("f32 against f64 at t~5e7: shared B=16 N=5000 R=3", slow, 16,
          5e7 + np.cumsum(rng.uniform(2e4, 1e5, 5000)), "shared", f32, None, "f64", True),
@@ -206,21 +247,50 @@ def kernel_cases(card):
                     B=B, N=len(t), jr=jr, jc=jc, cols=1 if args["y"].dim() == 1 else args["y"].shape[0],
                     itemsize=args["y"].element_size())
         case["bound_ms"], case["bound_by"] = celerite_bound(case)
-        print(f"[kernel] {name}: max_abs_err={max_abs:.3e} ({tol}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}) [{card}]", flush=True)
+        team = team_size(B, sm_count, jr, jc)
+        print(f"[kernel] {name}: max_abs_err={max_abs:.3e} ({tol}) kernel {ms:.3f} ms (L={team}{before_note(name)}), "
+              f"plain {plain_ms:.3f} ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}) [{card}]", flush=True)
         check(ok, f"{name}: kernel disagrees with the plain version (max abs err {max_abs})")
         results.append(case)
 
-    # a non-positive-definite theta: -inf from both bodies and the plain version
-    args = inputs(drw, 16, t5k, "shared", f64)
-    args["coeffs"] = args["coeffs"]._replace(ar=-args["coeffs"].ar)
-    ref = celerite_log_likelihood_plain(**args)
-    check(bool(torch.all(ref == -math.inf)), "non-PD theta must give -inf from the plain version")
-    for sym in (True, False):
-        out = celerite_log_likelihood(**args, sym=sym)
-        check(bool(torch.all(out == -math.inf)), f"non-PD theta must give -inf (sym={sym})")
-    print("[kernel] non-PD theta: -inf from both kernel bodies and the plain version", flush=True)
+    # a non-positive-definite theta: -inf from every body and layout and the plain version
+    for kernel in (drw, wide10):
+        args = inputs(kernel, 16, t5k, "shared", f64)
+        args["coeffs"] = args["coeffs"]._replace(ar=-args["coeffs"].ar)
+        ref = celerite_log_likelihood_plain(**args)
+        check(bool(torch.all(ref == -math.inf)), "non-PD theta must give -inf from the plain version")
+        for sym in (True, False):
+            for team in TEAMS:
+                if kernel is wide10 and team != 32:
+                    continue
+                out = _launch(**args, sym=sym, team=team)
+                check(bool(torch.all(out == -math.inf)), f"non-PD theta must give -inf (sym={sym}, L={team})")
+    print("[kernel] non-PD theta: -inf from every kernel body and layout and the plain version", flush=True)
+    layout_sweep(card, inputs, drw_qpo, t5k, sm_count)
     return results
+
+
+def layout_sweep(card, inputs, kernel, t, sm_count):
+    """Phase 3, celerite layouts: teams of 32 and 8 lanes per likelihood at
+    the batches on either side of ``team_size``'s crossover (its setting and
+    6 likelihoods an SM), at the bootstrap's and the observed fit's data
+    layouts; they must agree (rtol 1e-10 f64; rtol 1e-4, atol 1e-2 f32)."""
+    import torch
+
+    from mind_the_gaps_tpu_torch.ops.celerite import TEAMS, WARP_TEAM_MAX_PER_SM, _launch, team_size
+
+    f32, f64 = torch.float32, torch.float64
+    for dtype, layout in ((f32, "grouped"), (f64, "shared")):
+        for B in (WARP_TEAM_MAX_PER_SM * sm_count, 6 * sm_count):
+            args = inputs(kernel, B, t, layout, dtype, G=B // 6 if B % 6 == 0 else B)
+            outs = {team: _launch(**args, team=team).double() for team in TEAMS}
+            tol = (1e-10 * outs[32].abs()) if dtype == f64 else (1e-2 + 1e-4 * outs[32].abs())
+            for team in TEAMS:
+                check(bool(((outs[team] - outs[32]).abs() <= tol).all()), f"layouts disagree at B={B} {dtype}")
+            ms = {team: cuda_ms(lambda: _launch(**args, team=team), reps=3) for team in TEAMS}
+            times = ", ".join(f"L={team} {ms[team]:.3f} ms" for team in TEAMS)
+            print(f"[layout] {layout} R=3 {dtype} B={B} ({B / sm_count:.2f} per SM): {times}, "
+                  f"rule L={team_size(B, sm_count, 1, 1)} [{card}]", flush=True)
 
 
 def e13_step_keys(lc, kernel, B, dev, seed=0):
@@ -254,6 +324,7 @@ def sort_cases(card, lc, kernel):
     import torch
 
     from mind_the_gaps_tpu_torch.ops import rank_remap, rank_remap_plain, sort_kv, sort_kv_plain
+    from mind_the_gaps_tpu_torch.ops.sort import sort_tier
 
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(7)
@@ -273,15 +344,26 @@ def sort_cases(card, lc, kernel):
 
     cases = [
         # name, op, inputs, bytes an element in and out
-        ("rank_remap (128, 65536) one E13 step, two-level tier", "remap", (adj65, draws65), 20),
+        ("rank_remap (128, 65536) one E13 step, cluster tier", "remap", (adj65, draws65), 20),
         ("rank_remap (128, 65536) planted ties and +-0.0", "remap", (planted(128, 65536), draws65), 20),
-        ("rank_remap (512, 8192) single-block tier", "remap", (randn(512, 8192), desc(randn(512, 8192))), 20),
+        ("rank_remap (512, 8192) tile tier", "remap", (randn(512, 8192), desc(randn(512, 8192))), 20),
         ("rank_remap (128, 50011) non-power-of-two", "remap", (adj65[:, :50011].contiguous(),
                                                                 draws65[:, :50011].contiguous()), 20),
         ("sort_kv (128, 65536) f64, the E13 draws", "sort", (-xsim65, xsim65), 32),
         ("sort_kv (128, 16384) f32", "sort", (randn(128, 16384), randn(128, 16384)), 16),
         ("sort_kv (64, 8) f32 with ties", "sort", (planted(64, 8), randn(64, 8)), 16),
     ]
+    for m in (16384, 16385, 65536, 131072, 131073):  # the cluster tier's edges
+        def where(dtype):
+            tier, ctas = sort_tier(m, dtype)
+            return f"{tier} tier, {ctas} CTA{'s' if ctas > 1 else ''} a row"
+
+        f32, f64 = torch.float32, torch.float64
+        cases += [
+            (f"rank_remap (8, {m}) {where(f32)}", "remap", (planted(8, m), desc(randn(8, m))), 20),
+            (f"sort_kv (8, {m}) f32 {where(f32)}", "sort", (planted(8, m), randn(8, m)), 16),
+            (f"sort_kv (8, {m}) f64 {where(f64)}", "sort", (planted(8, m).double(), randn(8, m, f64)), 32),
+        ]
     results = []
     for name, op, args, bpe in cases:
         fn, plain = (rank_remap, rank_remap_plain) if op == "remap" else (sort_kv, sort_kv_plain)
@@ -292,12 +374,15 @@ def sort_cases(card, lc, kernel):
         if op == "sort":
             equal = equal and torch.equal(torch.signbit(out[0]), torch.signbit(ref[0]))
         max_abs = max(float((a.double() - b.double()).abs().max()) for a, b in zip(out, ref))
-        plain_ms = cuda_ms(lambda: plain(*args), reps=10)
-        ms = cuda_ms(lambda: fn(*args), reps=10)
+        # a launch-bound case (a few rows of a few elements) gets 100 runs,
+        # so that it is timed with the card's clocks up, not ramping
+        reps = 100 if args[0].numel() <= 1 << 14 else 10
+        plain_ms = cuda_ms(lambda: plain(*args), reps=reps)
+        ms = cuda_ms(lambda: fn(*args), reps=reps)
         case = dict(name=name, op=op, ms=ms, plain_ms=plain_ms, max_abs_err=max_abs, equal=equal,
                     B=args[0].shape[0], m=args[0].shape[1], bytes_per_elem=bpe, itemsize=args[0].element_size())
         case["bound_ms"], case["bound_by"] = sort_bound(case)
-        print(f"[kernel] {name}: torch.equal={equal}, kernel {ms:.3f} ms, plain (library) {plain_ms:.3f} ms, "
+        print(f"[kernel] {name}: torch.equal={equal}, kernel {ms:.3f} ms{before_note(name)}, plain (library) {plain_ms:.3f} ms, "
               f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}) [{card}]", flush=True)
         check(equal, f"{name}: the kernel is not equal to its plain version")
         results.append(case)
@@ -394,7 +479,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     from mind_the_gaps_tpu_torch.ops import _build, celerite_log_likelihood, rank_remap, sort_kv
 
-    for lib in _build.build("celerite_loglike", "bitonic_sort"):
+    for lib in _build.build("celerite_loglike_f32", "celerite_loglike_f64", "bitonic_sort"):
         print(f"[build] {lib.relative_to(ROOT)}", flush=True)
     phase("build", t0)
 
@@ -407,10 +492,13 @@ def main(argv=None):
 
     def reset_counts():
         celerite_log_likelihood.launches = celerite_log_likelihood.dense_launches = 0
+        celerite_log_likelihood.team_launches = dict.fromkeys(celerite_log_likelihood.team_launches, 0)
         rank_remap.launches = sort_kv.launches = 0
 
     def read_counts():
         return dict(celerite=celerite_log_likelihood.launches, celerite_dense=celerite_log_likelihood.dense_launches,
+                    celerite_warp=celerite_log_likelihood.team_launches[32],
+                    celerite_split=sum(v for k, v in celerite_log_likelihood.team_launches.items() if k != 32),
                     rank_remap=rank_remap.launches, sort_kv=sort_kv.launches)
 
     # ---- 4. Gaussian main path ---------------------------------------- #
@@ -434,6 +522,8 @@ def main(argv=None):
           f"alt converged = {res.alt_model.converged} after {res.alt_model.sampler.iteration} steps, "
           f"null MAP = {res.null_model.max_parameters}, alt MAP = {res.alt_model.max_parameters}", flush=True)
     check(gauss["celerite"] > 0, "the main path never launched the celerite kernel")
+    check(gauss["celerite_warp"] > 0 and gauss["celerite_split"] > 0,
+          "the main path did not launch the celerite kernel in both layouts")
     check(res.t_dist.shape == (args.nsims,) and bool(np.all(np.isfinite(res.t_dist))), "t_dist not finite")
     check(0.0 <= res.p_value <= 1.0, f"p-value {res.p_value} outside [0, 1]")
     check(math.isfinite(res.t_obs), "t_obs not finite")
@@ -481,19 +571,29 @@ def main(argv=None):
     def named(cases, prefix):
         return next(c for c in cases if c["name"].startswith(prefix))
 
+    obs = named(cel_cases, "observed-fit step")
     cel = named(cel_cases, "bootstrap alt step")
     dense = named(cel_cases, "dense-S, bootstrap alt step")
     remap = named(srt_cases, "rank_remap (128, 65536) one E13 step")
     srt = named(srt_cases, "sort_kv (128, 65536) f64")
-    for c in (cel, dense, remap, srt):
-        print(f"[summary] times of the entry: {c['name']}", flush=True)
-    print("[summary] launches are the sums over the Gaussian and lognormal main paths; the sorts' plain "
+    for c in (obs, cel, dense, remap, srt):
+        print(f"[summary] times of the entry: {c['name']}{before_note(c['name'])}", flush=True)
+    print("[summary] launches are the sums over the Gaussian and lognormal main paths (the celerite "
+          "entries: its launches with a warp and with 8 lanes per likelihood); the sorts' plain "
           "versions are the library calls (stable torch.sort / argsort with a gather / scatter)", flush=True)
+    print(f"[goal] rank_remap (128, 65536): kernel {remap['ms']:.3f} ms against the library's "
+          f"{remap['plain_ms']:.3f} ms: {'met' if remap['ms'] <= remap['plain_ms'] else 'NOT met'}", flush=True)
+    print(f"[goal] celerite observed-fit shape: {obs['ms']:.3f} ms against 1.2 ms: "
+          f"{'met' if obs['ms'] <= 1.2 else 'NOT met'}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        row("celerite_loglike", "cuda", CELERITE_SOURCE, "mind_the_gaps_tpu/ops/pallas_celerite.py:520",
-            gauss["celerite"] + logn["celerite"], cel, None),
-        row("celerite_loglike dense-S", "cuda", CELERITE_SOURCE, "mind_the_gaps_tpu/ops/pallas_celerite.py:48",
+        row("celerite_loglike, a warp a likelihood (observed-fit shape)", "cuda", CELERITE_SOURCE,
+            "mind_the_gaps_tpu/ops/pallas_celerite.py:520", gauss["celerite_warp"] + logn["celerite_warp"], obs,
+            None),
+        row("celerite_loglike, 8 lanes a likelihood (bootstrap alt shape)", "cuda", CELERITE_SOURCE,
+            "mind_the_gaps_tpu/ops/pallas_celerite.py:520", gauss["celerite_split"] + logn["celerite_split"],
+            cel, None),
+        row("celerite_loglike dense-S (bootstrap alt shape)", "cuda", CELERITE_SOURCE, "mind_the_gaps_tpu/ops/pallas_celerite.py:48",
             gauss["celerite_dense"] + logn["celerite_dense"], dense, None),
         row("bitonic_sort rank_remap", "cuda", SORT_SOURCE, "mind_the_gaps_tpu/ops/pallas_sort.py:556",
             gauss["rank_remap"] + logn["rank_remap"], remap, remap["plain_ms"]),

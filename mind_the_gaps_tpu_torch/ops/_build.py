@@ -3,11 +3,13 @@
 Each ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
 library lands in ``mind_the_gaps_tpu_torch/_build/`` under a name keyed
-by a hash of the source and the flags, so a stale library is never
-loaded.  Nothing is built at import: the first CUDA call builds.
+by a hash of the source, every ``csrc/*.cuh`` header and the flags, so a
+stale library is never loaded.  Nothing is built at import: the first
+CUDA call builds.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,7 +19,7 @@ import threading
 from pathlib import Path
 from typing import List
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "load_library"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "load_library", "device_scope", "stream_handle"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -49,8 +51,10 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` goes."""
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -87,3 +91,24 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)[0]))
             _loaded[name] = lib
         return lib
+
+
+def stream_handle(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream (the int of
+    ``torch.cuda.current_stream(device).cuda_stream``), without building a
+    Stream object: that costs more host time than a small kernel."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return raw(torch.cuda.current_device() if device.index is None else device.index)
+
+
+def device_scope(device):
+    """Makes ``device`` (a CUDA torch.device) current for a launch; no
+    device switch when it already is (a switch costs as much host time as
+    a small kernel)."""
+    import torch
+
+    return contextlib.nullcontext() if device.index == torch.cuda.current_device() else torch.cuda.device(device)

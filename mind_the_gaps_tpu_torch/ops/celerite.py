@@ -18,31 +18,73 @@ same function.
 
 A CPU tensor goes to the plain PyTorch version
 (``celerite_log_likelihood_plain``, the recursion of ``solver.batched``)
-whatever ``sym``.  A CUDA tensor launches ``csrc/celerite_loglike.cu`` on
-the current stream, or raises: there is no fallback.
+whatever ``sym``.  A CUDA tensor launches the kernel of
+``csrc/celerite_loglike.cuh`` (built from ``celerite_loglike_f32.cu`` /
+``_f64.cu``) on the current stream, or raises: there is no fallback.
 ``celerite_log_likelihood.launches`` counts the launches of the packed
-body, ``.dense_launches`` those of the dense-S body.
+body, ``.dense_launches`` those of the dense-S body, and
+``.team_launches[L]`` the packed launches with L lanes per likelihood.
+
+Layout (``team_size``): a team of 32 lanes (a warp) per likelihood at
+small batches, 8 lanes at large ones.  The kernel's compile-time bodies
+(packed and dense-S) cover the (Jr, Jc) of ``STATIC_WIDTHS``; any other
+R >= 1 runs its runtime-R body, which takes the warp layout only.
+``_launch`` takes the layout as an argument, for tests that hold each
+layout against the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from mind_the_gaps_tpu_torch.ops._build import load_library
+from mind_the_gaps_tpu_torch.ops._build import device_scope, load_library, stream_handle
 from mind_the_gaps_tpu_torch.solver.batched import batched_log_likelihood, check_layout
 
-__all__ = ["celerite_log_likelihood", "celerite_log_likelihood_plain"]
+__all__ = ["celerite_log_likelihood", "celerite_log_likelihood_plain", "team_size", "STATIC_WIDTHS",
+           "WARP_TEAM_MAX_PER_SM", "TEAMS", "check_coefficients"]
 
 celerite_log_likelihood_plain = batched_log_likelihood
 
 _ENTRY = {torch.float32: "celerite_loglike_f32", torch.float64: "celerite_loglike_f64"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+_ARGTYPES = [_I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+
+# (Jr, Jc) with a compile-time body (CELERITE_STATIC_PAIRS in the .cuh):
+# every R = Jr + 2 Jc <= 6, and the DRW / Lorentzian sums at R = 7 and 8.
+STATIC_WIDTHS = frozenset(
+    [(jr, jc) for jc in range(4) for jr in range(7) if 1 <= jr + 2 * jc <= 6] + [(1, 3), (0, 4), (2, 3)]
+)
+# Likelihoods per SM up to which a warp (32 lanes) serves each likelihood;
+# above it 8 lanes do.  Set from chip_smoke.py's layout sweep on the H100
+# (PERF.md section 6): at R=3, f32 and f64, L=32 was the faster up to 4 per
+# SM and L=8 from 6 per SM.
+WARP_TEAM_MAX_PER_SM = 4
+TEAMS = (32, 8)  # the compile-time bodies' layouts
 
 
+def team_size(B: int, sm_count: int, jr: int, jc: int) -> int:
+    """Lanes per likelihood from the batch per SM: 32 up to
+    WARP_TEAM_MAX_PER_SM, else 8.  The runtime-R body exists only with 32."""
+    if (jr, jc) not in STATIC_WIDTHS or B <= WARP_TEAM_MAX_PER_SM * sm_count:
+        return 32
+    return 8
+
+
+_SM_COUNT: dict = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+@functools.lru_cache(maxsize=None)
 def _entry(dtype):
-    fn = getattr(load_library("celerite_loglike"), _ENTRY[dtype])
+    fn = getattr(load_library(_ENTRY[dtype]), _ENTRY[dtype])
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -57,15 +99,11 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def celerite_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None, sym: bool = True):
-    """(B,) log-likelihoods; -inf where K(theta_b) is not positive definite."""
+def check_coefficients(coeffs):
+    """(B, Jr, Jc) of coefficients the kernel takes: six tensors of one
+    float dtype and device, (B, Jr) real and (B, Jc) complex, R >= 1;
+    raises otherwise.  Any R = Jr + 2 Jc >= 1 has a body."""
     ar = coeffs[0]
-    if ar.device.type == "cpu":
-        return celerite_log_likelihood_plain(
-            coeffs, t, y, diag, mean=mean, repeats=repeats, extra_diag=extra_diag
-        )
-    if ar.device.type != "cuda":
-        raise ValueError(f"celerite_log_likelihood runs on CPU or CUDA tensors, not {ar.device}")
     dtype, device = ar.dtype, ar.device
     if dtype not in _ENTRY:
         raise TypeError(f"celerite_log_likelihood takes float32 or float64, not {dtype}")
@@ -74,8 +112,29 @@ def celerite_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, ext
     for name, x, j in zip(("ar", "cr", "ac", "bc", "cc", "dc"), coeffs, (Jr, Jr, Jc, Jc, Jc, Jc)):
         if x.device != device or x.dtype != dtype or tuple(x.shape) != (B, j):
             raise ValueError(f"coefficient {name} must be a ({B}, {j}) {dtype} tensor on {device}")
-    if not 1 <= Jr + 2 * Jc <= 6:
-        raise ValueError(f"the kernel takes 1 <= Jr + 2 Jc <= 6, got Jr={Jr}, Jc={Jc}")
+    if Jr + 2 * Jc == 0:
+        raise ValueError("the kernel needs at least one celerite term (R = Jr + 2 Jc >= 1)")
+    return B, Jr, Jc
+
+
+def celerite_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None, sym: bool = True):
+    """(B,) log-likelihoods; -inf where K(theta_b) is not positive definite."""
+    ar = coeffs[0]
+    if ar.device.type == "cpu":
+        return celerite_log_likelihood_plain(
+            coeffs, t, y, diag, mean=mean, repeats=repeats, extra_diag=extra_diag
+        )
+    return _launch(coeffs, t, y, diag, mean, repeats, extra_diag, sym, team=None)
+
+
+def _launch(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None, sym: bool = True, team=None):
+    """The kernel on CUDA tensors, with ``team`` lanes per likelihood (one
+    of TEAMS), or ``team_size``'s layout when it is None."""
+    ar = coeffs[0]
+    if ar.device.type != "cuda":
+        raise ValueError(f"celerite_log_likelihood runs on CPU or CUDA tensors, not {ar.device}")
+    B, Jr, Jc = check_coefficients(coeffs)
+    dtype, device = ar.dtype, ar.device
 
     t64 = torch.as_tensor(t, dtype=torch.float64, device=device)
     N = t64.shape[0]
@@ -96,17 +155,22 @@ def celerite_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, ext
     out = torch.empty(B, dtype=dtype, device=device)
     if B == 0:
         return out
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    if team is None:
+        team = team_size(B, _sm_count(device), Jr, Jc)
+    if team not in TEAMS:
+        raise ValueError(f"team must be one of {TEAMS} lanes, got {team}")
+    with device_scope(device):
+        stream = stream_handle(device)
         rc = _entry(dtype)(
-            Jr, Jc, 0 if sym else 1, dt.data_ptr(), y_t.data_ptr(), y_cols, d_t.data_ptr(), d_cols,
+            Jr, Jc, 0 if sym else 1, team, dt.data_ptr(), y_t.data_ptr(), y_cols, d_t.data_ptr(), d_cols,
             *(c.data_ptr() for c in cs), _ptr(mean), _ptr(extra_diag),
             B, N, repeats, out.data_ptr(), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"celerite_loglike kernel launch failed (code {rc})")
+        raise RuntimeError(f"celerite_loglike kernel launch failed (code {rc}; Jr={Jr}, Jc={Jc}, team={team})")
     if sym:
         celerite_log_likelihood.launches += 1
+        celerite_log_likelihood.team_launches[team] += 1
     else:
         celerite_log_likelihood.dense_launches += 1
     return out
@@ -114,3 +178,4 @@ def celerite_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, ext
 
 celerite_log_likelihood.launches = 0
 celerite_log_likelihood.dense_launches = 0
+celerite_log_likelihood.team_launches = dict.fromkeys(TEAMS, 0)

@@ -12,6 +12,12 @@ JAX package's Pallas network was unstable on ties; its XLA path, like this
 op, is stable).  Any B >= 1 and m >= 1: the kernel pads rows to a power of
 two itself.
 
+Tiers (``sort_tier``, from m and the dtype): rows padded to n = the next
+power of two >= max(m, one warp's elements: 512 float32, 1024 float64);
+n <= 16384 is one CTA a row ("tile"); n <= 131072 a thread-block cluster
+of n / 16384 CTAs ("cluster"); longer rows the "two-level" tier, which
+alone needs a device-memory scratch.  A refused cluster launch raises.
+
 A CPU tensor goes to the plain version (``sort_kv_plain``:
 ``torch.sort(stable=True)`` and a gather; ``rank_remap_plain``:
 ``torch.argsort(stable=True)`` and a scatter).  A CUDA tensor launches
@@ -22,17 +28,39 @@ passes run inside that call).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from mind_the_gaps_tpu_torch.ops._build import load_library
+from mind_the_gaps_tpu_torch.ops._build import device_scope, load_library, stream_handle
 
-__all__ = ["sort_kv", "sort_kv_plain", "rank_remap", "rank_remap_plain"]
+__all__ = ["sort_kv", "sort_kv_plain", "rank_remap", "rank_remap_plain", "sort_tier", "padded_length"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SORT_ENTRY = {torch.float32: "bitonic_sort_kv_f32", torch.float64: "bitonic_sort_kv_f64"}
+MIN_TILE = {torch.float32: 512, torch.float64: 1024}  # Geom<K>::kMinTile in the .cu
+MAX_TILE, MAX_CLUSTER = 16384, 8  # kMaxTile, kMaxCluster
+TIERS = ("tile", "cluster", "two-level")
 
 
+def padded_length(m: int, dtype=torch.float32) -> int:
+    """The kernel's row length: the next power of two >= max(m, one warp's
+    elements)."""
+    return max(MIN_TILE[dtype], 1 << max(m - 1, 0).bit_length())
+
+
+def sort_tier(m: int, dtype=torch.float32):
+    """(tier, CTAs a row) for rows of length m >= 1: ("tile", 1),
+    ("cluster", 2 | 4 | 8) or ("two-level", n / tile)."""
+    if m < 1 or dtype not in _SORT_ENTRY:
+        raise ValueError(f"sort_tier takes m >= 1 and float32 or float64, got {m}, {dtype}")
+    n = padded_length(m, dtype)
+    if n <= MAX_TILE:
+        return "tile", 1
+    return ("cluster" if n <= MAX_TILE * MAX_CLUSTER else "two-level"), n // MAX_TILE
+
+
+@functools.lru_cache(maxsize=None)
 def _entry(name):
     fn = getattr(load_library("bitonic_sort"), name)
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _P]
@@ -41,16 +69,14 @@ def _entry(name):
 
 
 def _scratch(x):
-    """(B, n) key and int32 index scratch for the two-level tier (rows
-    longer than one tile), else (None, None)."""
+    """The two-level tier's (B, n) scratch: the encoded int64 keys and, for
+    float64 keys, int32 indices; else (None, None)."""
     B, m = x.shape
-    n = 1 << max(m - 1, 0).bit_length()
-    tile_elems = load_library("bitonic_sort").bitonic_tile_elems
-    tile_elems.argtypes, tile_elems.restype = [], ctypes.c_int
-    if n <= tile_elems():
+    if sort_tier(m, x.dtype)[0] != "two-level":
         return None, None
-    return (torch.empty((B, n), dtype=x.dtype, device=x.device),
-            torch.empty((B, n), dtype=torch.int32, device=x.device))
+    n = padded_length(m, x.dtype)
+    idx = torch.empty((B, n), dtype=torch.int32, device=x.device) if x.dtype == torch.float64 else None
+    return torch.empty((B, n), dtype=torch.int64, device=x.device), idx
 
 
 def _check(name, a, b, dtypes):
@@ -65,8 +91,8 @@ def _check(name, a, b, dtypes):
 
 
 def _launch(name, fn, args):
-    with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with device_scope(args[0].device):
+        stream = stream_handle(args[0].device)
         rc = fn(*(None if a is None else a.data_ptr() for a in args), args[0].shape[0], args[0].shape[1], stream)
     if rc != 0:
         raise RuntimeError(f"bitonic_sort {name} kernel launch failed (code {rc})")

@@ -253,13 +253,14 @@ class Simulator:
         )
         if pdf.lower() not in ("gaussian", "lognormal", "uniform"):
             raise ValueError("%s not implemented! Currently implemented: Gaussian, Uniform or Lognormal" % pdf)
-        if pdf.lower() == "gaussian":
-            self.simulator = TK95Simulator(mean)
-        else:
-            self.simulator = E13Simulator(mean, pdf.lower(), max_iter=max_iter, device=device)
-
         seed = int(np.random.SeedSequence(random_state).entropy % (2**63))
         self._generator = torch.Generator().manual_seed(seed)
+        if pdf.lower() == "gaussian":
+            self.simulator = TK95Simulator(mean)
+        else:  # seeded too, on a stream of its own
+            e13_state = None if random_state is None else (seed + 1) % (2**63)
+            self.simulator = E13Simulator(mean, pdf.lower(), max_iter=max_iter, random_state=e13_state,
+                                          device=device)
 
         self.sim_dt = float(np.min(self._exposures) / aliasing_factor)
         dt = np.diff(times)

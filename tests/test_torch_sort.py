@@ -18,6 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from pathlib import Path  # noqa: E402
+
 import numpy as np  # noqa: E402
 
 from mind_the_gaps_tpu_torch.ops import (  # noqa: E402
@@ -25,6 +27,14 @@ from mind_the_gaps_tpu_torch.ops import (  # noqa: E402
     rank_remap_plain,
     sort_kv,
     sort_kv_plain,
+)
+from mind_the_gaps_tpu_torch.ops.sort import (  # noqa: E402
+    MAX_CLUSTER,
+    MAX_TILE,
+    MIN_TILE,
+    TIERS,
+    padded_length,
+    sort_tier,
 )
 
 
@@ -143,6 +153,41 @@ def test_cpu_tensors_use_the_plain_versions_and_do_not_count():
     assert (sort_kv.launches, rank_remap.launches) == before
 
 
+@pytest.mark.parametrize("m,dtype,tier,ctas", [
+    (1, torch.float32, "tile", 1), (8, torch.float64, "tile", 1), (512, torch.float32, "tile", 1),
+    (8192, torch.float64, "tile", 1), (16384, torch.float32, "tile", 1), (16384, torch.float64, "tile", 1),
+    (16385, torch.float32, "cluster", 2), (50011, torch.float32, "cluster", 4),
+    (65536, torch.float32, "cluster", 4), (65536, torch.float64, "cluster", 4),
+    (65537, torch.float32, "cluster", 8), (131072, torch.float64, "cluster", 8),
+    (131073, torch.float32, "two-level", 16), (131073, torch.float64, "two-level", 16),
+    (1 << 20, torch.float32, "two-level", 64),
+])
+def test_sort_tier_documented_choices(m, dtype, tier, ctas):
+    assert sort_tier(m, dtype) == (tier, ctas)
+
+
+def test_tier_constants_match_the_kernel_source():
+    src = (Path(__file__).resolve().parents[1] / "mind_the_gaps_tpu_torch/csrc/bitonic_sort.cu").read_text()
+    assert f"constexpr int kMaxTile = {MAX_TILE};" in src
+    assert f"constexpr int kMaxCluster = {MAX_CLUSTER};" in src
+    assert "kLogE = sizeof(K) == 4 ? 4 : 5;" in src and "kMinTile = 32 * kE;" in src
+    assert MIN_TILE == {torch.float32: 32 * 16, torch.float64: 32 * 32}
+
+
+def test_sort_tier_selects_only_existing_tiers():
+    for m in list(range(1, 600)) + [2**e + d for e in range(9, 24) for d in (-1, 0, 1)]:
+        for dtype, warp_elems in ((torch.float32, 512), (torch.float64, 1024)):
+            n = padded_length(m, dtype)
+            assert n >= max(m, warp_elems) and n & (n - 1) == 0 and n < 2 * max(m, warp_elems)
+            tier, ctas = sort_tier(m, dtype)
+            assert tier in TIERS and ctas * min(n, MAX_TILE) == n
+            assert (tier == "tile") == (ctas == 1) and (tier != "cluster" or ctas <= 8)
+    with pytest.raises(ValueError):
+        sort_tier(0)
+    with pytest.raises(ValueError):
+        sort_tier(8, torch.int32)
+
+
 def test_bad_arguments_raise():
     k = torch.zeros(3, 8)
     with pytest.raises(ValueError):
@@ -168,7 +213,7 @@ def cuda():
 
 
 CARD_CASES = [
-    # B, m, keys: tile tier, two-level tier, ragged lengths, the extremes
+    # B, m, keys: every tier (sort_kv also in float64), ragged lengths, the extremes
     (1, 1, "unique"),
     (3, 8, "ties"),
     (130, 100, "ties"),
@@ -178,6 +223,10 @@ CARD_CASES = [
     (2, 50011, "ties"),
     (2, 65536, "unique"),
     (1, 131072, "ties"),
+    (4, 32768, "ties"),  # the cluster tier's edges: 2, 4 and 8 CTAs a row
+    (128, 65536, "unique"),  # the lognormal main path's shape
+    (3, 131072, "unique"),
+    (2, 131073, "ties"),  # the first two-level row
 ]
 
 
