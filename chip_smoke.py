@@ -10,7 +10,11 @@ Phases, each printed with its seconds:
 2. build: the CUDA kernels of ``mind_the_gaps_tpu_torch/csrc`` with nvcc,
    one process per source, all started together, into
    ``mind_the_gaps_tpu_torch/_build`` (keyed by a hash of the source);
-3. kernels against plain: ``celerite_log_likelihood`` (packed and dense-S
+3. kernels against plain: ``celerite_log_likelihood_and_grad`` (the MAP
+   fit's forward + adjoint kernel: value and every gradient) at N=5000 for
+   R = 1 and 3 (the main path's fits), R = 7, a runtime R = 10, a
+   per-element residual with a linear mean and a non-positive-definite
+   theta; ``celerite_log_likelihood`` (packed and dense-S
    bodies, every layout, the compile-time widths up to R = 8 and the
    runtime-R body), ``rank_remap`` and ``sort_kv`` (the CUDA kernels, every
    tier and its edges) against their plain PyTorch versions on the same
@@ -19,15 +23,27 @@ Phases, each printed with its seconds:
    redesign of the hand-written kernels (PERF.md section 6); the sorts
    must be equal to their plain versions (``torch.equal``); then the two
    celerite layouts (32 or 8 lanes per likelihood) timed at the batches
-   on either side of the crossover of ``ops.celerite.team_size``;
+   on either side of the crossover of ``ops.celerite.team_size``; then the
+   MAP fit on the card against the plain version's fit on the CPU at
+   N=1000 (the same optimum);
 4. Gaussian main path: ``protassov_lrt(..., device="cuda")`` on the lrt_512
    scenario (N=5000 DRW-true data, DRW null, DRW+Lorentzian alternative,
-   512 simulations), with the kernels' launch counts over that run;
+   512 simulations), with the kernels' launch counts over that run and the
+   MAP fits' seconds, objective evaluations and milliseconds an evaluation;
 5. lognormal main path: the same LRT with ``pdf="Lognormal"`` (E13 cut
    m=65536, lock-step chunks of 128), reusing phase 4's fitted observed
    models, with the E13 iteration counts and the launch counts;
 6. tutorial-scale E13 generation: lognormal lightcurves per second at
-   n=500, B=256, cut 8192 (the JAX package's bench.py scenario).
+   n=500, B=256, cut 8192 (the JAX package's bench.py scenario);
+7. a fitted mean: ``derive_posteriors`` of the DRW with a linear mean model
+   on the N=5000 data (its MAP fit through the gradient kernel, then the
+   sampler's per-walker residuals through the celerite kernel's
+   per-element layout), a short chain;
+8. multi-chain: ``derive_posteriors(chains=4)`` of the DRW, a short chain;
+9. t_obs provenance: phase 4's LRT again with the observed null chain
+   started from the plain version's CPU fit (the fit the port ran on the
+   host before its MAP fit moved to the card); at the default sizes its
+   t_obs must be the one those runs gave.
 
 The last lines are the card's name and power limit, one JSON line of the
 kernels (route, source, launches in the main paths, error, times and
@@ -47,6 +63,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CELERITE_SOURCE = "mind_the_gaps_tpu_torch/csrc/celerite_loglike.cuh"
 SORT_SOURCE = "mind_the_gaps_tpu_torch/csrc/bitonic_sort.cu"
+GRAD_SOURCE = "mind_the_gaps_tpu_torch/csrc/celerite_grad.cuh"
+# the MAP fit's gradient, in the JAX package jax.value_and_grad over this
+# function (no Pallas kernel computes it)
+GRAD_REPLACES = "mind_the_gaps_tpu/solver/semiseparable.py:141"
+# the Gaussian lrt_512's t_obs in every run whose MAP fits ran on the host
+# CPU (PERF.md section 5)
+HOST_FIT_T_OBS = 5.060570
 # the card's published peaks (H100 SXM data sheet, at the 700 W limit):
 # memory, and float32 / float64 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -150,6 +173,144 @@ def sort_bound(case):
     n = 1 << max(m - 1, 0).bit_length()
     lg = n.bit_length() - 1
     return bound(B * m * case["bytes_per_elem"], B * (n // 2) * lg * (lg + 1) // 2, case["itemsize"])
+
+
+def grad_step_ops(jr, jc):
+    """Floating-point operations of one time step of one likelihood in
+    csrc/celerite_grad.cuh, forward pass and value sums plus the adjoint,
+    counted from its loops (an exp, log, sin, cos or division counts as
+    one)."""
+    R = jr + 2 * jc
+    ns = R * (R + 1) // 2
+    forward = 2 * R * R + 9 * R + 5 * ns + 2 * jr + 11 * jc + 12
+    adjoint = 7.5 * R * R + 23.5 * R + 14 * ns + 4 * jr + 28 * jc + 11
+    return forward + adjoint
+
+
+def grad_bound(case):
+    """Bound of one gradient launch: t, y, diag, the coefficients, mean and
+    jitter read once, the value and every gradient (the (B, N) residual one
+    included) written once; the operations of both passes."""
+    B, N, jr, jc, y_numel = case["B"], case["N"], case["jr"], case["jc"], case["y_numel"]
+    coef = B * (2 * jr + 4 * jc)
+    n_bytes = 8 * (2 * N + y_numel + coef + 2 * B + B + coef + B + B * N)
+    return bound(n_bytes, B * N * grad_step_ops(jr, jc), 8)
+
+
+def grad_cases(card):
+    """Phase 3, the MAP fit's kernel: value and gradients against the plain
+    version (autograd through solver/semiseparable.py, on the card) at
+    N=5000: value rtol 1e-10, each gradient within 1e-8 of its largest
+    component."""
+    import numpy as np
+    import torch
+
+    from mind_the_gaps_tpu_torch.kernels import DampedRandomWalk, Lorentzian, RealTerm
+    from mind_the_gaps_tpu_torch.models.mean_models import LinearModel
+    from mind_the_gaps_tpu_torch.ops.celerite_grad import (
+        celerite_log_likelihood_and_grad,
+        celerite_log_likelihood_and_grad_plain,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    lc, null, alt = lrt_scenario()
+    t = torch.as_tensor(lc.times, device=dev)
+    y = torch.as_tensor(lc.y, dtype=torch.float64, device=dev)
+    diag = torch.as_tensor((lc.dy + 1e-12) ** 2, dtype=torch.float64, device=dev)
+    drw3l = alt + Lorentzian(-0.8, 1.5, -1.6) + Lorentzian(-0.6, 1.0, -1.2)  # R = 7
+    wide10 = drw3l + RealTerm(-0.5, -2.0) + Lorentzian(-1.2, 1.2, -1.0)  # R = 10: runtime-R body
+    n = t.shape[0]
+
+    def args(kernel, B=1, per_element_mean=False):
+        th = kernel.get_parameter_vector() + 0.05 * rng.normal(size=(B, kernel.ndim))
+        coeffs = kernel.coefficients(torch.as_tensor(th, device=dev))
+        out = dict(coeffs=coeffs, t=t, diag=diag, extra_diag=torch.full((B,), 1e-3, dtype=torch.float64, device=dev))
+        if per_element_mean:  # a linear mean model per draw: residuals (B, N)
+            lines = torch.as_tensor(np.stack([rng.normal(0, 1e-5, B), rng.normal(10.0, 0.1, B)], 1), device=dev)
+            out["y"] = y - LinearModel(0.0, 10.0).value(t - t[0], lines)
+        else:
+            out["y"], out["mean"] = y, torch.full((B,), float(np.mean(lc.y)), dtype=torch.float64, device=dev)
+        return out
+
+    cases = [
+        ("MAP fit null: B=1 N=5000 R=1 (DRW)", args(null)),
+        ("MAP fit alt: B=1 N=5000 R=3 (DRW + Lorentzian)", args(alt)),
+        ("R=7 DRW+3 Lorentzians: B=1 N=5000", args(drw3l)),
+        ("R=10 runtime-R body: B=1 N=5000", args(wide10)),
+        ("linear mean, per-element residuals: B=2 N=5000 R=3", args(alt, B=2, per_element_mean=True)),
+    ]
+    results = []
+    for name, a in cases:
+        out = celerite_log_likelihood_and_grad(**a)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = celerite_log_likelihood_and_grad_plain(**a)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        ll, ll_ref = out[0], ref[0]
+        check(bool(torch.isfinite(ll_ref).all()), f"{name}: the plain version is not finite")
+        max_abs = float((ll - ll_ref).abs().max())
+        ok = bool(((ll - ll_ref).abs() <= 1e-10 * ll_ref.abs()).all())
+        worst = 0.0
+        for g, g_ref in zip(out[1], ref[1]):
+            if g_ref.numel():
+                rel = float((g - g_ref).abs().max() / g_ref.abs().max().clamp_min(1e-300))
+                worst = max(worst, rel)
+        ms = cuda_ms(lambda: celerite_log_likelihood_and_grad(**a), reps=10)
+        c = a["coeffs"]
+        case = dict(name=name, max_abs_err=max_abs, grad_rel_err=worst, ms=ms, plain_ms=plain_ms, B=c.ar.shape[0],
+                    N=n, jr=c.ar.shape[1], jc=c.ac.shape[1], y_numel=a["y"].numel())
+        case["bound_ms"], case["bound_by"] = grad_bound(case)
+        print(f"[kernel] celerite_grad {name}: value max_abs_err={max_abs:.3e} (rtol 1e-10), gradients "
+              f"{worst:.3e} of their largest (1e-8), kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {case['bound_ms']:.5f} ms ({case['bound_by']}) [{card}]", flush=True)
+        check(ok and worst <= 1e-8, f"{name}: the gradient kernel disagrees with its plain version")
+        results.append(case)
+
+    a = args(alt, B=3)  # the middle draw's DRW amplitude negative: K not positive definite
+    a["coeffs"] = a["coeffs"]._replace(ar=a["coeffs"].ar * torch.tensor([[1.0], [-1.0], [1.0]], device=dev))
+    ll, grads = celerite_log_likelihood_and_grad(**a)
+    ll_ref, _ = celerite_log_likelihood_and_grad_plain(**a)
+    check(float(ll[1]) == float(ll_ref[1]) == -math.inf, "non-PD theta must give -inf from the gradient kernel")
+    check(bool(torch.isfinite(ll[[0, 2]]).all()), "PD thetas beside a non-PD one must stay finite")
+    check(all(bool((g[1] == 0).all()) for g in grads), "non-PD theta must give a zero gradient")
+    print("[kernel] celerite_grad non-PD theta: -inf and a zero gradient, its neighbours finite", flush=True)
+    return results
+
+
+def fit_check(card, n=1000):
+    """Phase 3, the MAP fit on the card (one gradient launch an
+    evaluation) against the plain version's fit on the CPU, from the same
+    start: the same optimum, log-likelihood within 1e-7 and parameters
+    within rtol 1e-5, for the null and the alternative of the lrt_512
+    scenario cut to ``n`` points."""
+    import numpy as np
+    import torch
+
+    from mind_the_gaps_tpu_torch.gpmodelling import GPModelling
+
+    lc, null, alt = lrt_scenario(n)
+    for name, kernel in (("null", null), ("alt", alt)):
+        card_gp, cpu_gp = GPModelling(lc, kernel, device="cuda"), GPModelling(lc, kernel, device="cpu")
+        t0 = time.perf_counter()
+        a = card_gp.fit()
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = cpu_gp.fit()
+        t_cpu = time.perf_counter() - t0
+        dll = abs(a.fun - b.fun)
+        drel = float(np.max(np.abs(a.x - b.x) / np.maximum(np.abs(b.x), 1e-300)))
+        print(f"[fit] {name} N={n}: card -ll {a.fun!r} in {card_gp.timings['map_fit_evals']} evaluations "
+              f"({t_card:.3f} s, {card_gp.timings['map_fit_launches']} launches), CPU plain -ll {b.fun!r} in "
+              f"{cpu_gp.timings['map_fit_evals']} ({t_cpu:.3f} s); |d ll| {dll:.3e} (1e-7), parameters "
+              f"rtol {drel:.3e} (1e-5): card {a.x}, CPU {b.x} [{card}]", flush=True)
+        check(card_gp.timings["map_fit_launches"] == card_gp.timings["map_fit_evals"] > 0,
+              "the card's fit did not evaluate through the gradient kernel")
+        check(dll <= 1e-7 and drel <= 1e-5, f"the card's {name} fit missed the plain fit's optimum")
 
 
 def kernel_cases(card):
@@ -478,28 +639,37 @@ def main(argv=None):
     # ---- 2. build ----------------------------------------------------- #
     t0 = time.perf_counter()
     from mind_the_gaps_tpu_torch.ops import _build, celerite_log_likelihood, rank_remap, sort_kv
+    from mind_the_gaps_tpu_torch.ops.celerite_grad import celerite_log_likelihood_and_grad
 
-    for lib in _build.build("celerite_loglike_f32", "celerite_loglike_f64", "bitonic_sort"):
+    for lib in _build.build("celerite_loglike_f32", "celerite_loglike_f64", "bitonic_sort", "celerite_grad_f64"):
         print(f"[build] {lib.relative_to(ROOT)}", flush=True)
     phase("build", t0)
 
     # ---- 3. kernels against plain ------------------------------------- #
     t0 = time.perf_counter()
     lc, null, alt = lrt_scenario()
+    grad = grad_cases(card)
     cel_cases = kernel_cases(card)
     srt_cases = sort_cases(card, lc, null)
+    fit_check(card)
     phase("kernels against plain", t0)
 
     def reset_counts():
         celerite_log_likelihood.launches = celerite_log_likelihood.dense_launches = 0
         celerite_log_likelihood.team_launches = dict.fromkeys(celerite_log_likelihood.team_launches, 0)
-        rank_remap.launches = sort_kv.launches = 0
+        rank_remap.launches = sort_kv.launches = celerite_log_likelihood_and_grad.launches = 0
 
     def read_counts():
         return dict(celerite=celerite_log_likelihood.launches, celerite_dense=celerite_log_likelihood.dense_launches,
                     celerite_warp=celerite_log_likelihood.team_launches[32],
                     celerite_split=sum(v for k, v in celerite_log_likelihood.team_launches.items() if k != 32),
-                    rank_remap=rank_remap.launches, sort_kv=sort_kv.launches)
+                    rank_remap=rank_remap.launches, sort_kv=sort_kv.launches,
+                    celerite_grad=celerite_log_likelihood_and_grad.launches)
+
+    def fit_line(tag, model):
+        sec, evals = model.timings["map_fit_s"], model.timings["map_fit_evals"]
+        print(f"[{tag}] MAP fit: map_fit_s = {sec:.3f}, {evals} evaluations, {sec / evals * 1e3:.3f} ms an "
+              f"evaluation, {model.timings['map_fit_launches']} gradient-kernel launches [{card}]", flush=True)
 
     # ---- 4. Gaussian main path ---------------------------------------- #
     t0 = time.perf_counter()
@@ -521,6 +691,14 @@ def main(argv=None):
     print(f"[main] null converged = {res.null_model.converged} after {res.null_model.sampler.iteration} steps, "
           f"alt converged = {res.alt_model.converged} after {res.alt_model.sampler.iteration} steps, "
           f"null MAP = {res.null_model.max_parameters}, alt MAP = {res.alt_model.max_parameters}", flush=True)
+    for model in (res.null_model, res.alt_model):
+        fit_line("main", model)
+    check(gauss["celerite_grad"] > 0, "the main path's MAP fits never launched the gradient kernel")
+    check(gauss["celerite_grad"] == sum(m.timings["map_fit_evals"] for m in (res.null_model, res.alt_model)),
+          "a MAP fit evaluation did not go through the gradient kernel")
+    print(f"[main] t_obs {res.t_obs:.6f}; with the MAP fits on the host CPU it was {HOST_FIT_T_OBS:.6f} (the "
+          "observed chains start from a walker ball around the MAP optimum, so an optimum that differs in its last "
+          "bits gives other chains: phase 9 starts them from the plain fit's optimum)", flush=True)
     check(gauss["celerite"] > 0, "the main path never launched the celerite kernel")
     check(gauss["celerite_warp"] > 0 and gauss["celerite_split"] > 0,
           "the main path did not launch the celerite kernel in both layouts")
@@ -562,6 +740,65 @@ def main(argv=None):
     e13_generation_rate(card, torch.device("cuda"))
     phase("tutorial-scale E13 generation", t0)
 
+    # ---- 7. a fitted mean -------------------------------------------- #
+    t0 = time.perf_counter()
+    from mind_the_gaps_tpu_torch.gpmodelling import GPModelling
+
+    reset_counts()
+    gp_mean = GPModelling(lc, null, mean_model="linear", device="cuda")
+    gp_mean.derive_posteriors(max_steps=200, convergence_steps=100, walkers=16, seed=7)
+    torch.cuda.synchronize()
+    mean_counts = read_counts()
+    fit_line("mean", gp_mean)
+    print(f"[mean] linear mean: {gp_mean.sampler.iteration} steps, max loglike {gp_mean.max_loglikelihood:.6f}, "
+          f"median {gp_mean.median_parameters}, sampling {gp_mean.timings['sampling_s']:.3f} s, launches = "
+          f"{mean_counts}", flush=True)
+    check(gp_mean.mcmc_samples.shape[1] == 4 and bool(np.all(np.isfinite(gp_mean.loglikelihoods))),
+          "the fitted-mean run's log-probabilities are not finite")
+    check(mean_counts["celerite"] > 0 and mean_counts["celerite_grad"] > 0,
+          "the fitted-mean run did not launch both celerite kernels")
+    phase("fitted mean", t0)
+
+    # ---- 8. multi-chain ---------------------------------------------- #
+    t0 = time.perf_counter()
+    reset_counts()
+    gp_chains = GPModelling(lc, null, device="cuda")
+    gp_chains.derive_posteriors(max_steps=200, convergence_steps=100, walkers=16, chains=4, seed=8)
+    torch.cuda.synchronize()
+    chain_counts = read_counts()
+    print(f"[chains] chains=4 x 16 walkers: chain {gp_chains.sampler.get_chain().shape}, max loglike "
+          f"{gp_chains.max_loglikelihood:.6f}, rstat {gp_chains.get_rstat(burnin=50).shape}, sampling "
+          f"{gp_chains.timings['sampling_s']:.3f} s, launches = {chain_counts}", flush=True)
+    check(gp_chains.sampler.get_chain().shape[1] == 64 and bool(np.all(np.isfinite(gp_chains.loglikelihoods))),
+          "the chains=4 run's log-probabilities are not finite")
+    check(chain_counts["celerite"] > 0, "the chains=4 run never launched the celerite kernel")
+    check("jax" not in sys.modules, "the port imported jax")
+    phase("multi-chain", t0)
+
+    # ---- 9. t_obs provenance ------------------------------------------ #
+    # The matched estimator's t_obs depends on the observed null chain
+    # alone; started from the plain version's CPU fit, with the seeds of
+    # phase 4, it must give the t_obs of the runs whose fits ran there.
+    t0 = time.perf_counter()
+    cpu_fit = GPModelling(lc, null, device="cpu").fit()
+    card_x = GPModelling(lc, null, device="cuda").fit().x  # phase 4's null optimum (the fit is deterministic)
+    null_cpu_start = GPModelling(lc, null, device="cuda")
+    start = null_cpu_start.spread_walkers(32, cpu_fit.x, np.array(null_cpu_start.get_parameter_bounds(), dtype=object),
+                                          rng=np.random.default_rng(101))
+    null_cpu_start.derive_posteriors(initial_chain_params=start, max_steps=args.observed_max_steps, walkers=32,
+                                     seed=101)
+    res9 = protassov_lrt(lc, null, alt, nsims=args.nsims, seed=0, null_model=null_cpu_start,
+                         alt_model=res.alt_model, sim_max_steps=500, sim_walkers=12, chunk=512, device="cuda")
+    d_opt = float(np.max(np.abs(cpu_fit.x - card_x) / np.abs(cpu_fit.x)))
+    print(f"[t_obs] null MAP on the CPU {cpu_fit.x!r} (-ll {cpu_fit.fun!r}), on the card {card_x!r}: "
+          f"rtol {d_opt:.3e}; null chain from the CPU optimum: {null_cpu_start.sampler.iteration} steps, t_obs = "
+          f"{res9.t_obs:.6f}, p_value = {res9.p_value:.6f} (host-CPU fits: {HOST_FIT_T_OBS:.6f}, 1.0; phase 4: {res.t_obs:.6f}) "
+          f"[{card}]", flush=True)
+    if args.nsims == 512 and args.observed_max_steps == 10_000:
+        check(abs(res9.t_obs - HOST_FIT_T_OBS) <= 0.01 and res9.p_value == 1.0,
+              "started from the host-CPU fit's optimum, the Gaussian lrt_512 does not give its t_obs / p-value")
+    phase("t_obs provenance", t0)
+
     # ---- summary ------------------------------------------------------ #
     def row(name, route, source, replaces, launches, case, library_ms):
         return {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches,
@@ -571,34 +808,41 @@ def main(argv=None):
     def named(cases, prefix):
         return next(c for c in cases if c["name"].startswith(prefix))
 
+    paths = (gauss, logn, mean_counts, chain_counts)
+
+    def launches(key):
+        return sum(p[key] for p in paths)
+
+    grad_alt = named(grad, "MAP fit alt")
     obs = named(cel_cases, "observed-fit step")
     cel = named(cel_cases, "bootstrap alt step")
     dense = named(cel_cases, "dense-S, bootstrap alt step")
     remap = named(srt_cases, "rank_remap (128, 65536) one E13 step")
     srt = named(srt_cases, "sort_kv (128, 65536) f64")
-    for c in (obs, cel, dense, remap, srt):
+    for c in (grad_alt, obs, cel, dense, remap, srt):
         print(f"[summary] times of the entry: {c['name']}{before_note(c['name'])}", flush=True)
-    print("[summary] launches are the sums over the Gaussian and lognormal main paths (the celerite "
-          "entries: its launches with a warp and with 8 lanes per likelihood); the sorts' plain "
-          "versions are the library calls (stable torch.sort / argsort with a gather / scatter)", flush=True)
+    print("[summary] launches are the sums over the Gaussian, lognormal, fitted-mean and chains=4 paths "
+          "(the celerite entries: its launches with a warp and with 8 lanes per likelihood); the sorts' plain "
+          "versions are the library calls (stable torch.sort / argsort with a gather / scatter); the "
+          "gradient kernel's plain version is autograd through solver/semiseparable.py on the card", flush=True)
     print(f"[goal] rank_remap (128, 65536): kernel {remap['ms']:.3f} ms against the library's "
           f"{remap['plain_ms']:.3f} ms: {'met' if remap['ms'] <= remap['plain_ms'] else 'NOT met'}", flush=True)
     print(f"[goal] celerite observed-fit shape: {obs['ms']:.3f} ms against 1.2 ms: "
           f"{'met' if obs['ms'] <= 1.2 else 'NOT met'}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
+        row("celerite_grad, forward + adjoint (MAP fit alt shape)", "cuda", GRAD_SOURCE, GRAD_REPLACES,
+            launches("celerite_grad"), grad_alt, None),
         row("celerite_loglike, a warp a likelihood (observed-fit shape)", "cuda", CELERITE_SOURCE,
-            "mind_the_gaps_tpu/ops/pallas_celerite.py:520", gauss["celerite_warp"] + logn["celerite_warp"], obs,
-            None),
+            "mind_the_gaps_tpu/ops/pallas_celerite.py:520", launches("celerite_warp"), obs, None),
         row("celerite_loglike, 8 lanes a likelihood (bootstrap alt shape)", "cuda", CELERITE_SOURCE,
-            "mind_the_gaps_tpu/ops/pallas_celerite.py:520", gauss["celerite_split"] + logn["celerite_split"],
-            cel, None),
-        row("celerite_loglike dense-S (bootstrap alt shape)", "cuda", CELERITE_SOURCE, "mind_the_gaps_tpu/ops/pallas_celerite.py:48",
-            gauss["celerite_dense"] + logn["celerite_dense"], dense, None),
+            "mind_the_gaps_tpu/ops/pallas_celerite.py:520", launches("celerite_split"), cel, None),
+        row("celerite_loglike dense-S (bootstrap alt shape)", "cuda", CELERITE_SOURCE,
+            "mind_the_gaps_tpu/ops/pallas_celerite.py:48", launches("celerite_dense"), dense, None),
         row("bitonic_sort rank_remap", "cuda", SORT_SOURCE, "mind_the_gaps_tpu/ops/pallas_sort.py:556",
-            gauss["rank_remap"] + logn["rank_remap"], remap, remap["plain_ms"]),
+            launches("rank_remap"), remap, remap["plain_ms"]),
         row("bitonic_sort sort_kv", "cuda", SORT_SOURCE, "mind_the_gaps_tpu/ops/pallas_sort.py:460",
-            gauss["sort_kv"] + logn["sort_kv"], srt, srt["plain_ms"]),
+            launches("sort_kv"), srt, srt["plain_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -3,9 +3,11 @@
 GP modelling of irregularly sampled lightcurves with celerite-style
 kernels, TK95 simulation, the stretch-move ensemble sampler and the
 Protassov et al. (2002) likelihood-ratio test, on PyTorch tensors.  The
-batched celerite log-likelihood is a CUDA kernel written for Hopper
-(``csrc/celerite_loglike.cu``), built with ``nvcc`` at its first use on a
-CUDA device; on the CPU the same op runs its plain PyTorch version.
+batched celerite log-likelihood (``csrc/celerite_loglike.cuh``), the MAP
+fit's log-likelihood with its exact gradient (``csrc/celerite_grad.cuh``)
+and the E13 sort (``csrc/bitonic_sort.cu``) are CUDA kernels written for
+Hopper, built with ``nvcc`` at their first use on a CUDA device; on the
+CPU each op runs its plain PyTorch version.
 
 The JAX package ``mind_the_gaps_tpu`` is the reference this port is
 tested against; this package never imports it.
@@ -14,14 +16,14 @@ from mind_the_gaps_tpu_torch.lightcurves import GappyLightcurve
 
 __version__ = "0.1.0"
 
-__all__ = ["GappyLightcurve", "GPModelling", "Simulator", "protassov_lrt", "__version__"]
+__all__ = ["GappyLightcurve", "GPModelling", "AutocorrError", "Simulator", "protassov_lrt", "__version__"]
 
 
 def __getattr__(name):
-    if name == "GPModelling":
-        from mind_the_gaps_tpu_torch.gpmodelling import GPModelling
+    if name in ("GPModelling", "AutocorrError"):
+        from mind_the_gaps_tpu_torch import gpmodelling
 
-        return GPModelling
+        return getattr(gpmodelling, name)
     if name == "Simulator":
         from mind_the_gaps_tpu_torch.simulator import Simulator
 

@@ -2,12 +2,16 @@
 
 PyTorch port of ``mind_the_gaps_tpu/gpmodelling.py``:
 
-- ``fit``: the MAP fit, scipy's L-BFGS-B on the float64 objective of
-  ``solver/semiseparable.py`` with its exact autograd gradient;
+- ``fit``: the MAP fit, scipy's L-BFGS-B on the float64 objective and its
+  exact gradient, evaluated on ``device``: on a CUDA device one launch of
+  the forward + adjoint kernel (``ops.celerite_grad``) an evaluation, on
+  the CPU the plain version (autograd through ``solver/semiseparable.py``);
 - ``derive_posteriors``: the stretch-move ensemble sampler with the
-  reference's convergence, discard and thin policy; every step evaluates
-  half the ensemble through ``ops.celerite_log_likelihood`` (the CUDA
-  kernel for a CUDA ``device``);
+  reference's convergence, discard and thin policy, one ensemble or
+  ``chains`` independent ones in lock-step; every step evaluates half the
+  ensemble through ``ops.celerite_log_likelihood`` (the CUDA kernel for a
+  CUDA ``device``), with a fitted mean model as per-walker residuals;
+- ``standarized_residuals``, ``loo_residuals``, ``predict``, ``get_rstat``;
 - ``make_device_generator``: posterior-predictive lightcurves (TK95, and
   the E13 adjustment for a non-Gaussian flux PDF) for a batch of parameter
   draws, on the device; ``generate_batch_from_posteriors`` /
@@ -35,17 +39,47 @@ from mind_the_gaps_tpu_torch.models.mean_models import (
     MeanModel,
 )
 from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood
-from mind_the_gaps_tpu_torch.sampler import integrated_autocorr_time_masked, sample_ensemble_impl
+from mind_the_gaps_tpu_torch.ops.celerite_grad import celerite_log_likelihood_and_grad, celerite_loglike_fn
+from mind_the_gaps_tpu_torch.sampler import (
+    integrated_autocorr_time,
+    integrated_autocorr_time_masked,
+    sample_ensemble_grouped,
+    sample_ensemble_impl,
+)
 from mind_the_gaps_tpu_torch.solver.numpy_ref import numpy_log_likelihood
-from mind_the_gaps_tpu_torch.solver.semiseparable import log_likelihood as solver_log_likelihood
+from mind_the_gaps_tpu_torch.solver.semiseparable import (
+    build_matrices,
+    factor,
+    inverse_diag,
+    solve,
+)
+from mind_the_gaps_tpu_torch.solver.semiseparable import predict as solver_predict
+from mind_the_gaps_tpu_torch.solver.semiseparable import predict_at as solver_predict_at
 
-__all__ = ["GPModelling", "ChainResult"]
+__all__ = ["GPModelling", "ChainResult", "AutocorrError"]
 
 GEN_CHUNK = 512  # lightcurves a generation call of generate_batch_from_posteriors
 
 _NOT_DERIVED = (
     "Posteriors have not been derived. Please run derive_posteriors prior to populate the attributes."
 )
+
+try:  # user code catching emcee.autocorr.AutocorrError keeps working
+    from emcee.autocorr import AutocorrError as _BaseAutocorrError
+
+    _autocorr_bases = (_BaseAutocorrError, RuntimeError)
+except ImportError:  # emcee is not a dependency
+    _autocorr_bases = (RuntimeError,)
+
+
+class AutocorrError(*_autocorr_bases):
+    """Chain too short for a reliable autocorrelation-time estimate; carries
+    the estimate on ``.tau``, as emcee's does (a subclass of emcee's when
+    emcee is importable, and of RuntimeError)."""
+
+    def __init__(self, tau, *args, **kwargs):
+        self.tau = tau
+        Exception.__init__(self, *args, **kwargs)
 
 
 def synchronize(device: torch.device) -> None:
@@ -56,7 +90,8 @@ def synchronize(device: torch.device) -> None:
 
 class ChainResult:
     """The pieces of emcee's EnsembleSampler the reference relies on:
-    get_chain / get_log_prob with discard/thin/flat, and iteration."""
+    get_chain / get_log_prob with discard/thin/flat, get_autocorr_time, and
+    iteration."""
 
     def __init__(self, chain: np.ndarray, log_probs: np.ndarray):
         self._chain = chain  # (n_steps, walkers, ndim)
@@ -74,13 +109,29 @@ class ChainResult:
         lp = self._log_probs[discard :: max(thin, 1)]
         return lp.reshape(-1) if flat else lp
 
+    def get_autocorr_time(self, tol: int = 0):
+        """Integrated autocorrelation time per parameter (float64 on the
+        CPU).  ``tol`` > 0: as emcee, raise ``AutocorrError`` unless the
+        chain is at least ``tol`` autocorrelation times long."""
+        tau = integrated_autocorr_time(torch.as_tensor(self._chain, dtype=torch.float64)).numpy()
+        if tol > 0:
+            n = self._chain.shape[0]
+            if np.any(tol * tau > n):
+                raise AutocorrError(
+                    tau,
+                    "The chain is shorter than %d times the integrated "
+                    "autocorrelation time for %d parameter(s). Use this estimate "
+                    "with caution and run a longer chain!\n"
+                    "N/%d = %.0f;\ntau: %s" % (tol, int(np.sum(tol * tau > n)), tol, n / tol, tau)
+                )
+        return tau
+
 
 class GPModelling:
     """Gaussian Process modelling of a GappyLightcurve on ``device``.
 
-    ``device``: where the sampler, its likelihoods and the simulations run
-    (a CUDA device by default, or "cpu").  The MAP fit runs on the CPU
-    whatever the device (see ``fit``)."""
+    ``device``: where the MAP fit, the sampler, their likelihoods and the
+    simulations run (a CUDA device by default, or "cpu")."""
 
     meanmodels = ["linear", "constant", "gaussian"]
 
@@ -159,10 +210,8 @@ class GPModelling:
         return float(numpy_log_likelihood(coeffs, self._t_cpu.numpy(), y, self._diag_cpu.numpy() + jitter))
 
     def _mean_curve(self, theta, t):
-        th_m = theta[self._nk :] if self.fit_mean else torch.as_tensor(
-            self.mean_model.get_parameter_vector(), dtype=t.dtype
-        )
-        return self.mean_model.value(t, th_m)
+        """The mean model's curve at times ``t`` for parameters (D,)."""
+        return self.mean_model.value(t, self._split_theta(theta)[1])
 
     # ------------------------------------------------------------------ #
     def get_parameter_bounds(self) -> List[Tuple[float, float]]:
@@ -192,39 +241,56 @@ class GPModelling:
         return self.kernel.get_parameter_vector()
 
     # ------------------------------------------------------------------ #
-    def _loglike_map(self, theta):
-        """The float64 MAP objective's log-likelihood (CPU tensors)."""
-        th_k = theta[: self._nk]
-        coeffs = self.kernel.coefficients(th_k)
-        diag = self._diag_cpu + self.kernel.jitter(th_k)
-        return solver_log_likelihood(coeffs, self._t_cpu, self._y_cpu - self._mean_curve(theta, self._t_cpu), diag)
+    def _split_theta(self, theta):
+        """(kernel part, mean-model part) of a parameter tensor (..., D); the
+        mean part is the fixed vector when the mean is not fitted."""
+        if self.fit_mean:
+            return theta[..., : self._nk], theta[..., self._nk :]
+        return theta[..., : self._nk], torch.as_tensor(
+            self.mean_model.get_parameter_vector(), dtype=theta.dtype, device=theta.device
+        )
+
+    def _loglike_and_grad(self, x):
+        """(log-likelihood, its gradient) at one parameter vector ``x``, as
+        float64 numpy: the coefficients, jitter and mean curve by torch ops
+        on the device, then ``celerite_loglike_fn`` (one kernel launch on a
+        CUDA device) and autograd back to theta; one copy to the host."""
+        theta = torch.tensor(np.asarray(x, dtype=np.float64), device=self.device, requires_grad=True)
+        th_k = theta[None, : self._nk]
+        y, diag = self._series(torch.float64)
+        ll = celerite_loglike_fn(self.kernel.coefficients(th_k), self._t, y - self._mean_curve(theta, self._t), diag,
+                                 extra_diag=self.kernel.jitter(th_k))[0]
+        ll.backward()
+        out = torch.cat([ll.detach()[None], theta.grad]).cpu().numpy()
+        return float(out[0]), out[1:]
 
     def fit(self, initial_params=None):
         """MAP fit with L-BFGS-B under the parameter bounds, with exact
-        gradients.
-
-        The objective is one O(N) recursion, a sequential host loop: like
-        the JAX package, which runs this fit on the host CPU when the
-        device is an accelerator, the port runs it on the CPU for every
-        ``device``, by autograd through ``solver/semiseparable.py``.  That
-        placement is the design, not a fallback."""
+        gradients, on ``device``; a non-finite log-likelihood gives the
+        optimizer 1e25 and a zero gradient (as the JAX package's ``fit``).
+        ``timings["map_fit_evals"]`` counts the objective evaluations and
+        ``timings["map_fit_launches"]`` the kernel launches they made."""
         if initial_params is None:
             initial_params = self.initial_params
+        evals, launches = 0, celerite_log_likelihood_and_grad.launches
 
         def fun(x):
-            theta = torch.tensor(np.asarray(x, dtype=np.float64), requires_grad=True)
-            v = -self._loglike_map(theta)
-            if not torch.isfinite(v):
+            nonlocal evals
+            evals += 1
+            ll, g = self._loglike_and_grad(x)
+            if not np.isfinite(ll):
                 return 1e25, np.zeros_like(np.asarray(x, dtype=float))
-            v.backward()
-            g = theta.grad.numpy()
-            return float(v.detach()), np.where(np.isfinite(g), g, 0.0)
+            return -ll, np.where(np.isfinite(g), -g, 0.0)
 
         bounds = [
             (None if not np.isfinite(lo) else lo, None if not np.isfinite(hi) else hi)
             for lo, hi in ((float(b[0]), float(b[1])) for b in self.get_parameter_bounds())
         ]
-        return minimize(fun, np.asarray(initial_params, dtype=float), jac=True, method="L-BFGS-B", bounds=bounds)
+        out = minimize(fun, np.asarray(initial_params, dtype=float), jac=True, method="L-BFGS-B", bounds=bounds)
+        self.timings["map_fit_evals"] = self.timings.get("map_fit_evals", 0) + evals
+        self.timings["map_fit_launches"] = (self.timings.get("map_fit_launches", 0)
+                                            + celerite_log_likelihood_and_grad.launches - launches)
+        return out
 
     # ------------------------------------------------------------------ #
     def spread_walkers(self, walkers, parameters, bounds, percent=0.1, max_attempts=20, rng=None):
@@ -275,20 +341,23 @@ class GPModelling:
 
     def log_prob_batch(self, thetas):
         """Log-posteriors (B,) of parameter draws (B, D) on the device, in
-        their dtype: flat prior within bounds plus the likelihood with the
-        unfitted constant mean, through the celerite op."""
-        if self.fit_mean:
-            raise NotImplementedError(
-                "a fitted mean model in the sampler is not ported yet "
-                "(ROADMAP queue 1, item 6: gpmodelling.py)"
-            )
+        their dtype: flat priors within bounds plus the likelihood through
+        the celerite op.  An unfitted constant mean enters as the op's
+        per-element ``mean``; a fitted mean model as per-walker residual
+        series (B, N), formed in float64 and then cast."""
         th_k = thetas[:, : self._nk]
         coeffs = self.kernel.coefficients(th_k)
         lp = self.kernel.log_prior(th_k)
         jitter = self.kernel.jitter(th_k)
         y, diag = self._series(thetas.dtype)
-        mean = thetas.new_full((thetas.shape[0],), float(self.mean_model.get_parameter_vector()[0]))
-        ll = celerite_log_likelihood(coeffs, self._t, y, diag, mean=mean, extra_diag=jitter)
+        if self.fit_mean:
+            th_m = thetas[:, self._nk :]
+            lp = lp + self.mean_model.log_prior(th_m)
+            resid = self._series(torch.float64)[0] - self.mean_model.value(self._t, th_m)
+            ll = celerite_log_likelihood(coeffs, self._t, resid.to(thetas.dtype), diag, extra_diag=jitter)
+        else:
+            mean = thetas.new_full((thetas.shape[0],), float(self.mean_model.get_parameter_vector()[0]))
+            ll = celerite_log_likelihood(coeffs, self._t, y, diag, mean=mean, extra_diag=jitter)
         return torch.where(torch.isfinite(lp), lp + ll, ll.new_full((), -math.inf))
 
     def derive_posteriors(
@@ -315,36 +384,39 @@ class GPModelling:
         log-probabilities of the kept samples in float64, both through the
         same op (default False: the chain runs in float64).  ``seed`` seeds
         the walker ball (numpy) and the sampler's ``torch.Generator``.
-        ``chains`` > 1 and ``mesh`` are not ported yet."""
-        if chains != 1:
-            raise NotImplementedError(
-                "chains > 1 is not ported yet (ROADMAP queue 1, item 6: the grouped multi-chain sampler)"
-            )
+
+        ``chains``: the number of independent stretch-move ensembles of
+        ``walkers`` walkers each, run in lock-step (``sample_ensemble_grouped``:
+        one likelihood launch a half-step for all of them); the chain is
+        pooled as ``chains * walkers`` walkers.  ``initial_chain_params``
+        may be (chains, walkers, ndim).  ``mesh`` is not ported yet."""
         if mesh is not None:
             raise NotImplementedError("mesh mode is not ported yet (ROADMAP queue 1, item 11: multi-GPU)")
-        if self.fit_mean:
-            raise NotImplementedError(
-                "a fitted mean model in derive_posteriors is not ported yet "
-                "(ROADMAP queue 1, item 6: gpmodelling.py)"
-            )
+        if chains < 1:
+            raise ValueError("chains must be >= 1")
         if seed is not None:
             self._generator = torch.Generator(self.device).manual_seed(int(seed))
         t_start = time.perf_counter()
+        self.timings = {}
         if initial_chain_params is None:
             initial_params = self.fit(self.initial_params).x if fit else self.initial_params
             initial_chain_params = self.spread_walkers(
-                walkers, initial_params, np.array(self.get_parameter_bounds(), dtype=object),
+                chains * walkers, initial_params, np.array(self.get_parameter_bounds(), dtype=object),
                 rng=np.random.default_rng(seed) if seed is not None else None,
             )
-        self.timings = {"map_fit_s": time.perf_counter() - t_start}
+            if chains > 1:
+                initial_chain_params = initial_chain_params.reshape(chains, walkers, -1)
+        self.timings["map_fit_s"] = time.perf_counter() - t_start
         t_start = time.perf_counter()
         initial_chain_params = np.asarray(initial_chain_params, dtype=float)
-        walkers = initial_chain_params.shape[0]
+        if chains > 1 and (initial_chain_params.ndim != 3 or initial_chain_params.shape[0] != chains):
+            raise ValueError("with chains > 1, initial_chain_params must have shape (chains, walkers, ndim)")
+        pooled = int(np.prod(initial_chain_params.shape[:-1]))
 
         seg_dtype = torch.float32 if fast else torch.float64
         state = torch.as_tensor(initial_chain_params, dtype=seg_dtype, device=self.device)
-        chain_buf = state.new_zeros((max_steps, walkers, self._ndim))
-        lp_buf = state.new_zeros((max_steps, walkers))
+        chain_buf = state.new_zeros((max_steps, pooled, self._ndim))
+        lp_buf = state.new_zeros((max_steps, pooled))
 
         self.converged = False
         self._autocorr = []
@@ -353,11 +425,10 @@ class GPModelling:
         tau = np.full(self._ndim, np.inf)
         while iteration < max_steps:
             steps = min(convergence_steps, max_steps - iteration)
-            chain, lps, acc, state = sample_ensemble_impl(
-                self.log_prob_batch, state, steps, generator=self._generator
-            )
-            chain_buf[iteration : iteration + steps] = chain
-            lp_buf[iteration : iteration + steps] = lps
+            sampler_fn = sample_ensemble_grouped if state.dim() == 3 else sample_ensemble_impl
+            chain, lps, acc, state = sampler_fn(self.log_prob_batch, state, steps, generator=self._generator)
+            chain_buf[iteration : iteration + steps] = chain.reshape(steps, pooled, self._ndim)
+            lp_buf[iteration : iteration + steps] = lps.reshape(steps, pooled)
             iteration += steps
             tau = integrated_autocorr_time_masked(chain_buf, iteration).cpu().numpy()
             self._autocorr.append(np.mean(tau))
@@ -401,6 +472,71 @@ class GPModelling:
             ).cpu().numpy()
         self._sampler = sampler
         self.timings["sampling_s"] = time.perf_counter() - t_start
+
+    # ------------------------------------------------------------------ #
+    def _model_at(self, parameters):
+        """(coefficients, jitter, mean curve at the training times, mean-model
+        parameters) of a parameter vector (the current one when None), as
+        float64 tensors on the device."""
+        theta = self.get_parameter_vector() if parameters is None else parameters
+        theta = torch.as_tensor(np.asarray(theta, dtype=np.float64), device=self.device)
+        th_k, th_m = self._split_theta(theta)
+        return (self.kernel.coefficients(th_k), self.kernel.jitter(th_k), self.mean_model.value(self._t, th_m),
+                th_m)
+
+    def standarized_residuals(self, include_noise: bool = True, parameters=None):
+        """(y - mu) / sqrt(var) at the training points (Kelly+2011 Eq. 49, the
+        reference's formula), numpy (N,).  ``parameters`` defaults to the
+        current vector."""
+        coeffs, jitter, mean, _ = self._model_at(parameters)
+        y, diag = self._series(torch.float64)
+        mu_res, var = solver_predict(coeffs, self._t, y - mean, diag + jitter)
+        if include_noise:
+            var = var + jitter
+        return ((y - (mu_res + mean)) / torch.sqrt(var)).cpu().numpy()
+
+    def loo_residuals(self, parameters=None):
+        """Exact leave-one-out standardized residuals alpha_n / sqrt((K^-1)_nn)
+        with alpha = K^-1 (y - mean), by the O(N R^2) selected inverse; ~ N(0, 1)
+        under the model (unlike ``standarized_residuals``).  numpy (N,)."""
+        coeffs, jitter, mean, _ = self._model_at(parameters)
+        y, diag = self._series(torch.float64)
+        m = build_matrices(coeffs, self._t, diag + jitter)
+        D, W, _ = factor(m)
+        alpha = solve(m, D, W, y - mean)
+        return (alpha / torch.sqrt(inverse_diag(m, D, W))).cpu().numpy()
+
+    def predict(self, t_pred=None, parameters=None, return_var: bool = True, include_noise: bool = False):
+        """GP predictive mean (and variance) at ``t_pred`` (default: the
+        training times), celerite's ``gp.predict``; numpy."""
+        coeffs, jitter, mean_train, th_m = self._model_at(parameters)
+        y, diag = self._series(torch.float64)
+        if t_pred is None:
+            mu_res, var = solver_predict(coeffs, self._t, y - mean_train, diag + jitter)
+            mu = mu_res + mean_train
+        else:
+            t_pred = torch.as_tensor(np.asarray(t_pred, dtype=np.float64), device=self.device)
+            mean_pred = self.mean_model.value(t_pred, th_m)
+            out = solver_predict_at(coeffs, self._t, y - mean_train, diag + jitter, t_pred, return_var=return_var)
+            if not return_var:
+                return (out + mean_pred).cpu().numpy()
+            mu, var = out[0] + mean_pred, out[1]
+        if not return_var:
+            return mu.cpu().numpy()
+        if include_noise:
+            var = var + jitter
+        return mu.cpu().numpy(), var.cpu().numpy()
+
+    def get_rstat(self, burnin: Optional[int] = None):
+        """Gelman-Rubin-style ratio (walkers, ndim): each walker's variance over
+        that of the pooled chain (the reference's formula)."""
+        if self._sampler is None:
+            raise ValueError(_NOT_DERIVED)
+        if burnin is None:
+            burnin = int(np.mean(self.tau)) * 10
+        within = np.var(self._sampler.get_chain(discard=burnin), axis=0)
+        between = np.var(self._sampler.get_chain(flat=True, discard=burnin), axis=0)
+        return within / between[np.newaxis, :]
 
     # ------------------------------------------------------------------ #
     @property

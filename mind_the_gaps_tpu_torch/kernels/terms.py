@@ -204,6 +204,12 @@ class Term:
             )
         return k
 
+    def variance(self, theta=None):
+        """k(0) without jitter, the sum of the a_r and a_c: a tensor of the
+        batch shape ``theta.shape[:-1]``."""
+        c = self.coefficients(theta)
+        return c.ar.sum(-1) + c.ac.sum(-1)
+
     def __repr__(self):
         args = ", ".join(f"{n}={v:.6g}" for n, v in zip(self.parameter_names, self._values))
         return f"{type(self).__name__}({args})"

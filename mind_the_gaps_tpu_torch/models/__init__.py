@@ -1,4 +1,17 @@
-"""Mean models for the GP."""
+"""Model namespace: covariance (kernel) terms, mean models, analytic PSDs,
+as the JAX package's ``models`` exports them."""
+from mind_the_gaps_tpu_torch.kernels import (
+    BendingPowerlaw,
+    ComplexTerm,
+    Cosinus,
+    DampedRandomWalk,
+    JitterTerm,
+    Lorentzian,
+    Matern32Term,
+    RealTerm,
+    SHOTerm,
+)
+from mind_the_gaps_tpu_torch.models import psd_models
 from mind_the_gaps_tpu_torch.models.mean_models import (
     ConstantModel,
     GaussianModel,
@@ -10,6 +23,15 @@ from mind_the_gaps_tpu_torch.models.mean_models import (
 )
 
 __all__ = [
+    "Lorentzian",
+    "Cosinus",
+    "DampedRandomWalk",
+    "BendingPowerlaw",
+    "RealTerm",
+    "ComplexTerm",
+    "SHOTerm",
+    "Matern32Term",
+    "JitterTerm",
     "MeanModel",
     "ConstantModel",
     "LinearModel",
@@ -17,4 +39,5 @@ __all__ = [
     "SineModel",
     "TwoSineModel",
     "LensingProfile",
+    "psd_models",
 ]

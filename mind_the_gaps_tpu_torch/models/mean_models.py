@@ -2,7 +2,9 @@
 
 PyTorch port of ``mind_the_gaps_tpu/models/mean_models.py``: static
 structure (names, bounds, values as numpy) plus ``value(t, theta)`` on
-tensors.  ``theta`` is ``(D,)``; ``log_prior`` also accepts ``(..., D)``.
+tensors.  ``theta`` is ``(D,)`` or a batch ``(..., D)``, which gives
+curves ``(..., N)`` (one a walker in the sampler); ``log_prior`` takes
+both too.  ``value`` computes in ``t``'s dtype and device.
 """
 from __future__ import annotations
 
@@ -67,12 +69,20 @@ class MeanModel:
         raise NotImplementedError
 
 
+def _columns(t, theta, n):
+    """``t`` as a tensor and the first ``n`` parameters of ``theta`` (..., D)
+    as (..., 1) columns in ``t``'s dtype and device."""
+    t = torch.as_tensor(t)
+    theta = torch.as_tensor(theta, dtype=t.dtype, device=t.device)
+    return t, [theta[..., i : i + 1] for i in range(n)]
+
+
 class ConstantModel(MeanModel):
     parameter_names = ("value",)
 
     def value(self, t, theta):
-        t = torch.as_tensor(t)
-        return torch.as_tensor(theta, dtype=t.dtype, device=t.device)[0].expand(t.shape)
+        t, (c,) = _columns(t, theta, 1)
+        return c.expand(c.shape[:-1] + t.shape)
 
 
 class LinearModel(MeanModel):
@@ -81,7 +91,8 @@ class LinearModel(MeanModel):
     parameter_names = ("slope", "intercept")
 
     def value(self, t, theta):
-        return theta[0] * torch.as_tensor(t) + theta[1]
+        t, (slope, intercept) = _columns(t, theta, 2)
+        return slope * t + intercept
 
 
 class GaussianModel(MeanModel):
@@ -96,9 +107,9 @@ class GaussianModel(MeanModel):
         super().__init__(*args, bounds=bounds, **kwargs)
 
     def value(self, t, theta):
-        mean, sigma, amplitude = theta[0], theta[1], theta[2]
-        constant = theta[3] if len(self.parameter_names) == 4 else 0.0
-        t = torch.as_tensor(t)
+        t, cols = _columns(t, theta, len(self.parameter_names))
+        mean, sigma, amplitude = cols[:3]
+        constant = cols[3] if len(cols) == 4 else 0.0
         return (
             amplitude / (2 * math.pi * sigma) * torch.exp(-((t - mean) ** 2) / (2 * sigma**2))
             + constant
@@ -109,15 +120,15 @@ class SineModel(MeanModel):
     parameter_names = ("constant", "amplitude", "frequency", "phase")
 
     def value(self, t, theta):
-        return theta[0] + theta[1] * torch.sin(theta[2] * torch.as_tensor(t) + theta[3])
+        t, (c, a, f, ph) = _columns(t, theta, 4)
+        return c + a * torch.sin(f * t + ph)
 
 
 class TwoSineModel(MeanModel):
     parameter_names = ("constant", "amplitude0", "phase0", "amplitude1", "phase1", "frequency")
 
     def value(self, t, theta):
-        t = torch.as_tensor(t)
-        c, a0, p0, a1, p1, f = (theta[i] for i in range(6))
+        t, (c, a0, p0, a1, p1, f) = _columns(t, theta, 6)
         return c + a0 * torch.sin(f * t + p0) + a1 * torch.sin(2 * f * t + p1)
 
 
@@ -127,5 +138,5 @@ class LensingProfile(MeanModel):
     parameter_names = ("lense_mass", "stellar_mass")
 
     def value(self, t, theta):
-        t = torch.as_tensor(t)
-        return torch.full(t.shape, math.nan, dtype=t.dtype, device=t.device)
+        t, (m,) = _columns(t, theta, 1)
+        return torch.full(m.shape[:-1] + t.shape, math.nan, dtype=t.dtype, device=t.device)

@@ -4,6 +4,8 @@ from mind_the_gaps_tpu_torch.sampler.autocorr import (
     integrated_autocorr_time_masked,
 )
 from mind_the_gaps_tpu_torch.sampler.ensemble import (
+    max_loglike_ensemble_impl,
+    sample_ensemble_grouped,
     sample_ensemble_impl,
     stretch_draws,
     stretch_half,
@@ -11,6 +13,8 @@ from mind_the_gaps_tpu_torch.sampler.ensemble import (
 
 __all__ = [
     "sample_ensemble_impl",
+    "sample_ensemble_grouped",
+    "max_loglike_ensemble_impl",
     "stretch_draws",
     "stretch_half",
     "integrated_autocorr_time",

@@ -180,28 +180,35 @@ def test_protassov_lrt_ab_against_jax():
 
 
 def test_options_not_ported_are_refused():
+    """checkpoint/resume and mesh mode are not ported: they raise (a fitted
+    mean and chains > 1 are ported, and refused only with a mesh)."""
     lc = lightcurve_from_jax(_drw_lc(seed=10, n=30))
     null_t, alt_t = _kernels(tk)
     with pytest.raises(NotImplementedError):
         protassov_lrt(lc, null_t, alt_t, nsims=2, checkpoint="x.npz", device="cpu")
     gp = TGP(lc, null_t, device="cpu")
     with pytest.raises(NotImplementedError):
-        gp.derive_posteriors(chains=2, fit=False, max_steps=10)
+        gp.derive_posteriors(mesh=object(), fit=False, max_steps=10)
     with pytest.raises(NotImplementedError):
-        TGP(lc, null_t, mean_model="constant", device="cpu").derive_posteriors(fit=False, max_steps=10)
+        TGP(lc, null_t, mean_model="constant", device="cpu").derive_posteriors(
+            mesh=object(), chains=2, fit=False, max_steps=10)
+    with pytest.raises(ValueError):
+        gp.derive_posteriors(chains=0, fit=False, max_steps=10)
 
 
 def test_entry_points_default_to_cuda():
     """Every public function or class of the port that takes ``device``
     runs on the card unless the caller asks for the CPU (signatures only:
-    nothing runs here)."""
+    nothing runs here); the MAP fit's op, the samplers, the solver tiers,
+    the PSD models and the GPModelling methods of this slice are among the
+    functions checked, and take their device from their tensors or model."""
     import importlib
     import inspect
     import pkgutil
 
     import mind_the_gaps_tpu_torch as pkg
 
-    found = {}
+    found, seen = {}, set()
     for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         mod = importlib.import_module(info.name)
         for name in getattr(mod, "__all__", ()):
@@ -210,11 +217,21 @@ def test_entry_points_default_to_cuda():
                 f for f in vars(obj).values() if inspect.isfunction(f)
             ] if inspect.isclass(obj) else []
             for fn in fns:
+                qual = f"{info.name}.{fn.__qualname__}"
+                seen.add(qual)
                 param = inspect.signature(fn).parameters.get("device")
                 if param is not None and param.default is not inspect.Parameter.empty:
-                    found[f"{info.name}.{fn.__qualname__}"] = param.default
+                    found[qual] = param.default
     for entry in ("lrt.protassov_lrt", "lrt.fit_lightcurves_batch", "lrt.loglikes_f64_at",
                   "gpmodelling.GPModelling.__init__", "simulator.core.E13Simulator.__init__",
                   "simulator.core.Simulator.__init__"):
         assert f"mind_the_gaps_tpu_torch.{entry}" in found, entry
+    for entry in ("ops.celerite_grad.celerite_loglike_fn", "ops.celerite_grad.celerite_log_likelihood_and_grad",
+                  "sampler.ensemble.sample_ensemble_grouped", "sampler.ensemble.max_loglike_ensemble_impl",
+                  "solver.semiseparable.predict_at", "solver.semiseparable.inverse_diag",
+                  "models.psd_models.BrokenPowerLaw.__call__", "gpmodelling.GPModelling.predict",
+                  "gpmodelling.GPModelling.loo_residuals", "gpmodelling.GPModelling.get_rstat",
+                  "gpmodelling.ChainResult.get_autocorr_time"):
+        assert f"mind_the_gaps_tpu_torch.{entry}" in seen, entry
+        assert f"mind_the_gaps_tpu_torch.{entry}" not in found, entry
     assert all(default == "cuda" for default in found.values()), found
