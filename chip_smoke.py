@@ -43,7 +43,25 @@ Phases, each printed with its seconds:
 9. t_obs provenance: phase 4's LRT again with the observed null chain
    started from the plain version's CPU fit (the fit the port ran on the
    host before its MAP fit moved to the card); at the default sizes its
-   t_obs must be the one those runs gave.
+   t_obs must be the one those runs gave;
+10. the CLI on a lightcurve file at full width: phase 4's N=5000 data
+   written as a six-column SimpleLightcurve CSV, its rates and errors
+   (dy = 0.3) as they are, with exposures of 1.5 s and a background of 0.2
+   counts/s added (so about half the simulated bins fall under the Kraft
+   threshold of 15 counts; the observed errors stay phase 4's, about 9x
+   below the Poisson error of ~15 counts a bin), then
+   ``cli.main(["fit" ...])``, ``["simulate" ...]`` (512 simulations) and
+   ``["lrt" ...]`` (512, with a checkpoint) in this process at the default
+   depths, with Kraft low-count noise on the path; the Kraft tables built
+   on the card against the plain version on the CPU (1e-9); then the
+   resume check on the lrt's fitted models at chunk=128: the t_dist of a
+   run resumed from a checkpoint rewound to 2 chunks must equal the
+   uninterrupted run's (``np.array_equal``).
+
+Phase 3 also holds the latency probe ``ops/fma_probe.py`` (``csrc/fma_chain.cu``,
+dependent multiply-add chains) against its plain version in float32 and
+float64, and drives the probe's own entry point (``fma_probe.probe``),
+whose ns per iteration give the card's dependent-FMA latency.
 
 The last lines are the card's name and power limit, one JSON line of the
 kernels (route, source, launches in the main paths, error, times and
@@ -57,6 +75,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -67,6 +86,11 @@ GRAD_SOURCE = "mind_the_gaps_tpu_torch/csrc/celerite_grad.cuh"
 # the MAP fit's gradient, in the JAX package jax.value_and_grad over this
 # function (no Pallas kernel computes it)
 GRAD_REPLACES = "mind_the_gaps_tpu/solver/semiseparable.py:141"
+PROBE_SOURCE = "mind_the_gaps_tpu_torch/csrc/fma_chain.cu"
+PROBE_REPLACES = "benchmarks/experiments/sublane_probe.py:29"
+# phase 10's file: the exposure (s) and background rate (counts/s) added to
+# phase 4's data, with the Kraft threshold of KraftNoise (counts)
+CLI_EXPOSURE, CLI_BKG_RATE, CLI_BKG_RATE_ERR, KRAFT_COUNTS = 1.5, 0.2, 0.02, 15
 # the Gaussian lrt_512's t_obs in every run whose MAP fits ran on the host
 # CPU (PERF.md section 5)
 HOST_FIT_T_OBS = 5.060570
@@ -279,6 +303,73 @@ def grad_cases(card):
     check(all(bool((g[1] == 0).all()) for g in grads), "non-PD theta must give a zero gradient")
     print("[kernel] celerite_grad non-PD theta: -inf and a zero gradient, its neighbours finite", flush=True)
     return results
+
+
+def probe_cases(card):
+    """Phase 3, the latency probe: ``fma_chain`` against its plain version
+    at the JAX script's 16384 elements and 20000 iterations.  float64:
+    rtol 1e-9 elementwise.  float32: within 2e-3 of the largest |value| of
+    the plain version run in float64 (the kernel fuses each multiply-add,
+    the plain version rounds twice, and the recurrence, nearly a rotation,
+    carries rounding forward: about iters x 6e-8 relative, 5.6e-4 in a
+    numpy emulation of the fused float32 chain).  Returns the float32 case
+    (the JAX probe's type) and the float64 one."""
+    import torch
+
+    from mind_the_gaps_tpu_torch.ops.fma_probe import ITERS, fma_chain, fma_chain_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(11)
+    n, cases = 16384, {}
+    for dtype in (torch.float32, torch.float64):
+        x = torch.randn(n, generator=gen, dtype=dtype, device=dev)
+        out = fma_chain(x, ITERS)
+        torch.cuda.synchronize()
+        ref = fma_chain_plain(x.double(), ITERS)
+        err = (out.double() - ref).abs()
+        if dtype == torch.float64:
+            ok, tol = bool((err <= 1e-9 * ref.abs()).all()), "rtol 1e-9"
+        else:
+            ok, tol = float(err.max()) <= 2e-3 * float(ref.abs().max()), "2e-3 of max|f64 plain|"
+        plain_ms = cuda_ms(lambda: fma_chain_plain(x, ITERS), reps=1)
+        ms = cuda_ms(lambda: fma_chain(x, ITERS), reps=20)
+        item = x.element_size()
+        case = dict(name=f"fma_chain {str(dtype)[6:]} n={n} iters={ITERS}", max_abs_err=float(err.max()), ms=ms,
+                    plain_ms=plain_ms)
+        # in and out once; 5 operations an iteration, 3 more for b's start and the sum
+        case["bound_ms"], case["bound_by"] = bound(2 * n * item, n * (5 * ITERS + 3), item)
+        print(f"[kernel] {case['name']}: max_abs_err={case['max_abs_err']:.3e} ({tol}; max|plain| "
+              f"{float(ref.abs().max()):.3e}) kernel {ms:.4f} ms ({ms * 1e6 / ITERS:.3f} ns an iteration), plain "
+              f"{plain_ms:.1f} ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}) [{card}]", flush=True)
+        check(ok, f"{case['name']}: the probe kernel disagrees with its plain version")
+        cases[item] = case
+    return cases[4], cases[8]
+
+
+def probe_entry(card):
+    """Phase 3, the probe's own entry point (``fma_probe.probe``): ns an
+    iteration at the JAX script's counts and at 1, 4, 16 and 32 warps an
+    SM; the chain is two dependent FMAs an iteration, so at 1 and 4 warps
+    an SM (at most one a scheduler) half an iteration is one FMA's latency.
+    Returns (launches, {dtype: latency ns})."""
+    from mind_the_gaps_tpu_torch.ops.fma_probe import fma_chain, probe
+
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    fma_chain.launches = 0
+    rows = probe()
+    launches = fma_chain.launches
+    check(launches > 0, "the probe's entry point never launched the probe kernel")
+    latency = {}
+    for r in rows:
+        print(f"[probe] {r['dtype']} n={r['n']} threads={r['threads']} warps/SM={r['warps_per_sm']}: "
+              f"{r['ms']:.4f} ms, {r['ns_per_iter']:.4f} ns an iteration [{card}]", flush=True)
+        if r["warps_per_sm"] in (1, 4):
+            latency.setdefault(r["dtype"], []).append(r["ns_per_iter"] / 2)
+    latency = {k: min(v) for k, v in latency.items()}
+    print(f"[probe] dependent FMA latency: float32 {latency['float32']:.4f} ns, float64 {latency['float64']:.4f} ns "
+          f"(SM clock now, max: {clocks}); {launches} launches [{card}]", flush=True)
+    return launches, latency
 
 
 def fit_check(card, n=1000):
@@ -550,6 +641,134 @@ def sort_cases(card, lc, kernel):
     return results
 
 
+def chain_depth(jr, jc):
+    """Dependent operations on one step's chain of the celerite recursion
+    (csrc/celerite_loglike.cuh, phase B), counting each multiply-add, and
+    the reciprocal, as one: W = (v - S u) / D, D W, M = S + D W W^T, P M and
+    (P M) P^T (one deep for real terms, two with a complex pair), S u and
+    u^T S u (R deep each), D = A - u^T S u, 1 / D.  A lower bound: the
+    reciprocal is a sequence of several."""
+    R = jr + 2 * jc
+    return 2 * R + 5 + 2 * (2 if jc else 1)
+
+
+def latency_floor_ms(case, latency_ns, passes=1):
+    """The least time a launch's chains can take at the measured latency
+    of one dependent multiply-add: (N - 1) steps of ``chain_depth``, once
+    for the forward kernel, twice (forward and adjoint, the adjoint at
+    least as deep) for the gradient kernel."""
+    return passes * (case["N"] - 1) * chain_depth(case["jr"], case["jc"]) * latency_ns * 1e-6
+
+
+def cli_phase(card, lc, workdir, reset_counts, read_counts):
+    """Phase 10: the CLI end to end on a lightcurve file at N=5000, then the
+    checkpoint resume check; returns the launch counts of the three
+    commands."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from mind_the_gaps_tpu_torch import SimpleLightcurve, cli
+    from mind_the_gaps_tpu_torch.lrt import protassov_lrt
+    from mind_the_gaps_tpu_torch.simulator.noise import KraftNoise, kraft_tables
+
+    # phase 4's data, with exposures and a background, as a six-column
+    # SimpleLightcurve CSV at full precision
+    csv = workdir / "lc_bkg.csv"
+    n = lc.n
+    np.savetxt(csv, np.column_stack([lc.times, lc.y, lc.dy, np.full(n, CLI_EXPOSURE), np.full(n, CLI_BKG_RATE),
+                                     np.full(n, CLI_BKG_RATE_ERR)]),
+               header="t\trate\terror\texposure\tbkg_rate\tbkg_rate_err")
+    lc_file = SimpleLightcurve(str(csv))
+    check(np.array_equal(lc_file.times, lc.times) and np.array_equal(lc_file.y, lc.y),
+          "the CSV does not read back as phase 4's data")
+
+    # the Kraft tables: built on the card, against the plain version on the CPU
+    bkg = lc_file.bkg_rate * lc_file.exposures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    noise = KraftNoise(lc_file.exposures, bkg, lc_file.bkg_rate_err, kraft_counts=KRAFT_COUNTS, device="cuda")
+    torch.cuda.synchronize()
+    t_table = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = kraft_tables(bkg, noise.max_count, "cpu")
+    t_plain = time.perf_counter() - t0
+    worst = 0.0
+    for card_t, cpu_t in zip((noise.median_table, noise.lo_table, noise.hi_table), plain):
+        worst = max(worst, float(((card_t.cpu() - cpu_t).abs() / cpu_t.abs().clamp_min(1.0)).max()))
+    print(f"[cli] Kraft tables {tuple(noise.median_table.shape)} (N = 0..{noise.max_count}, {lc.n} bins): built on the "
+          f"card in {t_table:.3f} s, plain on the CPU {t_plain:.3f} s; largest difference {worst:.3e} of "
+          f"max(|value|, 1) (1e-9) [{card}]", flush=True)
+    check(worst <= 1e-9, "the Kraft tables built on the card disagree with the plain version")
+
+    def run(name, argv):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        print(f"[cli] {name}: {sec:.3f} s, launches = {counts} [{card}]", flush=True)
+        return out, counts
+
+    chain, sims, ckpt = workdir / "chain.npz", workdir / "sims.npz", workdir / "lrt.npz"
+    gp, fit_counts = run("fit", ["fit", str(csv), "--kernel", "drw", "--output", str(chain)])
+    check(fit_counts["celerite_grad"] > 0 and fit_counts["celerite"] > 0,
+          "cli fit did not launch the gradient and celerite kernels")
+    check(np.isfinite(gp.max_loglikelihood) and len(gp.mcmc_samples) > 10, "cli fit: no finite posterior")
+    print(f"[cli] fit: {gp.sampler.iteration} steps, converged {gp.converged}, max loglike "
+          f"{gp.max_loglikelihood:.6f}, MAP {gp.max_parameters}", flush=True)
+
+    (gp_sim, rates, dy), sim_counts = run("simulate", ["simulate", str(csv), "--kernel", "drw", "--chain", str(chain),
+                                                       "--nsims", "512", "--output", str(sims)])
+    kraft = gp_sim._simulator.noise
+    share = int(kraft.bins_replaced) / kraft.bins_drawn
+    print(f"[cli] simulate: noise {kraft.name}, {share:.4f} of the {kraft.bins_drawn} simulated bins under "
+          f"{KRAFT_COUNTS} counts replaced by Kraft medians and HPD errors", flush=True)
+    check(kraft.name == "Kraft" and share >= 0.10, f"Kraft noise replaced {share:.4f} of the bins, not >= 0.10")
+    check(rates.shape == (512, lc.n) and bool(np.all(np.isfinite(rates))) and bool(np.all(np.isfinite(dy)))
+          and bool(np.all(dy > 0)), "cli simulate: rates or errors not finite")
+
+    res, lrt_counts = run("lrt", ["lrt", str(csv), "--null", "drw", "--alt", "drw+qpo", "--nsims", "512",
+                                  "--checkpoint", str(ckpt)])
+    kraft = res.null_model._simulator.noise
+    share_lrt = int(kraft.bins_replaced) / kraft.bins_drawn
+    for key, sec in res.timings.items():
+        print(f"[cli] lrt {key} = {sec:.3f}", flush=True)
+    print(f"[cli] lrt: t_obs = {res.t_obs:.6f}, p_value = {res.p_value:.6f}, Kraft share {share_lrt:.4f}, null "
+          f"{res.null_model.sampler.iteration} steps, alt {res.alt_model.sampler.iteration} steps", flush=True)
+    check(kraft.name == "Kraft" and share_lrt >= 0.10, "cli lrt: Kraft noise not on the path")
+    check(lrt_counts["celerite_grad"] > 0 and lrt_counts["celerite_warp"] > 0 and lrt_counts["celerite_split"] > 0
+          and lrt_counts["celerite"] > 0,
+          "cli lrt did not launch the gradient kernel and both celerite layouts")
+    check(res.t_dist.shape == (512,) and bool(np.all(np.isfinite(res.t_dist))) and 0.0 <= res.p_value <= 1.0,
+          "cli lrt: t_dist not finite or p-value outside [0, 1]")
+
+    # resume: an uninterrupted checkpointed run, the file rewound to 2 chunks, a resumed run
+    common = dict(nsims=512, chunk=128, seed=0, null_model=res.null_model, alt_model=res.alt_model, device="cuda")
+    resume = workdir / "resume.npz"
+    t0 = time.perf_counter()
+    full = protassov_lrt(lc_file, res.null_model.kernel, res.alt_model.kernel, checkpoint=str(resume), **common)
+    t_full = time.perf_counter() - t0
+    d = dict(np.load(resume))
+    check(int(d["chunks_done"]) == 5, f"the checkpoint holds {int(d['chunks_done'])} chunks, not 5")
+    np.savez(str(resume) + ".tmp.npz", config_crc=d["config_crc"], chunks_done=np.int64(2),
+             null_done=d["null_done"][:256], alt_done=d["alt_done"][:256])
+    os.replace(str(resume) + ".tmp.npz", resume)
+    t0 = time.perf_counter()
+    resumed = protassov_lrt(lc_file, res.null_model.kernel, res.alt_model.kernel, checkpoint=str(resume), **common)
+    t_resumed = time.perf_counter() - t0
+    equal = np.array_equal(full.t_dist, resumed.t_dist)
+    print(f"[cli] resume at chunk=128: uninterrupted {t_full:.3f} s (t_obs {full.t_obs:.6f}, p {full.p_value:.6f}, "
+          f"checkpoint writes {full.timings['checkpoint_s']:.3f} s), resumed after 2 of 5 chunks {t_resumed:.3f} s "
+          f"(t_obs {resumed.t_obs:.6f}, checkpoint writes {resumed.timings['checkpoint_s']:.3f} s); t_dist equal: "
+          f"{equal} [{card}]", flush=True)
+    check(equal and full.t_obs == resumed.t_obs and full.p_value == resumed.p_value,
+          "the resumed LRT differs from the uninterrupted one")
+    return fit_counts, sim_counts, lrt_counts
+
+
 def lrt_scenario(n=5000):
     """The lrt_512 scenario: N=5000, t = cumsum(uniform(2, 8)) from
     default_rng(0), an exact DRW realization plus noise (dy=0.3, mean 10)."""
@@ -641,7 +860,8 @@ def main(argv=None):
     from mind_the_gaps_tpu_torch.ops import _build, celerite_log_likelihood, rank_remap, sort_kv
     from mind_the_gaps_tpu_torch.ops.celerite_grad import celerite_log_likelihood_and_grad
 
-    for lib in _build.build("celerite_loglike_f32", "celerite_loglike_f64", "bitonic_sort", "celerite_grad_f64"):
+    for lib in _build.build("celerite_loglike_f32", "celerite_loglike_f64", "bitonic_sort", "celerite_grad_f64",
+                            "fma_chain"):
         print(f"[build] {lib.relative_to(ROOT)}", flush=True)
     phase("build", t0)
 
@@ -651,6 +871,16 @@ def main(argv=None):
     grad = grad_cases(card)
     cel_cases = kernel_cases(card)
     srt_cases = sort_cases(card, lc, null)
+    probe32 = probe_cases(card)[0]
+    probe_launches, latency = probe_entry(card)
+    for c in grad:
+        print(f"[floor] celerite_grad {c['name']}: latency floor {latency_floor_ms(c, latency['float64'], 2):.4f} ms "
+              f"(forward + adjoint chains at {latency['float64']:.4f} ns a dependent FMA), kernel {c['ms']:.3f} ms "
+              f"[{card}]", flush=True)
+    for c in cel_cases:
+        lat = latency["float64" if c["itemsize"] == 8 else "float32"]
+        print(f"[floor] celerite {c['name']}: latency floor {latency_floor_ms(c, lat):.4f} ms (chain depth "
+              f"{chain_depth(c['jr'], c['jc'])} at {lat:.4f} ns), kernel {c['ms']:.3f} ms [{card}]", flush=True)
     fit_check(card)
     phase("kernels against plain", t0)
 
@@ -799,6 +1029,13 @@ def main(argv=None):
               "started from the host-CPU fit's optimum, the Gaussian lrt_512 does not give its t_obs / p-value")
     phase("t_obs provenance", t0)
 
+    # ---- 10. the CLI on a lightcurve file ----------------------------- #
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
+        cli_counts = cli_phase(card, lc, Path(tmp), reset_counts, read_counts)
+    check("jax" not in sys.modules, "the port imported jax")
+    phase("CLI on a lightcurve file", t0)
+
     # ---- summary ------------------------------------------------------ #
     def row(name, route, source, replaces, launches, case, library_ms):
         return {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches,
@@ -808,7 +1045,7 @@ def main(argv=None):
     def named(cases, prefix):
         return next(c for c in cases if c["name"].startswith(prefix))
 
-    paths = (gauss, logn, mean_counts, chain_counts)
+    paths = (gauss, logn, mean_counts, chain_counts, *cli_counts)
 
     def launches(key):
         return sum(p[key] for p in paths)
@@ -821,7 +1058,8 @@ def main(argv=None):
     srt = named(srt_cases, "sort_kv (128, 65536) f64")
     for c in (grad_alt, obs, cel, dense, remap, srt):
         print(f"[summary] times of the entry: {c['name']}{before_note(c['name'])}", flush=True)
-    print("[summary] launches are the sums over the Gaussian, lognormal, fitted-mean and chains=4 paths "
+    print("[summary] launches are the sums over the Gaussian, lognormal, fitted-mean, chains=4 and CLI (fit, "
+          "simulate, lrt) paths; the probe's are those of its own entry point (fma_probe.probe) "
           "(the celerite entries: its launches with a warp and with 8 lanes per likelihood); the sorts' plain "
           "versions are the library calls (stable torch.sort / argsort with a gather / scatter); the "
           "gradient kernel's plain version is autograd through solver/semiseparable.py on the card", flush=True)
@@ -843,6 +1081,8 @@ def main(argv=None):
             launches("rank_remap"), remap, remap["plain_ms"]),
         row("bitonic_sort sort_kv", "cuda", SORT_SOURCE, "mind_the_gaps_tpu/ops/pallas_sort.py:460",
             launches("sort_kv"), srt, srt["plain_ms"]),
+        row("fma_chain latency probe (f32, 16384 elements)", "cuda", PROBE_SOURCE, PROBE_REPLACES, probe_launches,
+            probe32, None),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

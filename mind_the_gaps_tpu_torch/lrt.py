@@ -20,7 +20,11 @@ last chunk and is refit by the same short chains as the simulations.
 from __future__ import annotations
 
 import math
+import os
 import time
+import warnings
+import zipfile
+import zlib
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -105,6 +109,38 @@ def percentile_of_score(dist, score) -> float:
     left = np.count_nonzero(dist < score)
     right = np.count_nonzero(dist <= score)
     return (left + right + (1 if right > left else 0)) * 50.0 / n
+
+
+def _checkpoint_crc(lightcurve, dy_obs, *arrays, settings) -> int:
+    """CRC-32 of every input that changes the bootstrap's results: the
+    observed data (times, y, dy, exposures, background), the posterior
+    draws and starting points of the refits, the kernels' bounds and the
+    settings tuple."""
+    h = 0
+    for arr in (lightcurve.times, lightcurve.y, dy_obs, lightcurve.exposures, lightcurve.bkg_rate,
+                lightcurve.bkg_rate_err, *arrays):
+        h = zlib.crc32(np.ascontiguousarray(arr, dtype=np.float64).tobytes(), h)
+    return zlib.crc32(repr(settings).encode(), h)
+
+
+def _read_checkpoint(path: str, crc: int):
+    """(chunks done, [null log-likelihoods], [alt log-likelihoods]) from a
+    checkpoint written for ``crc``; (0, [], []) with a warning for a file of
+    another configuration or one that cannot be read, and silently when
+    there is none."""
+    if not os.path.exists(path):
+        return 0, [], []
+    try:
+        with np.load(path) as d:
+            if int(d["config_crc"]) != crc:
+                warnings.warn(f"checkpoint {path} was written for a different LRT configuration; "
+                              "recomputing from scratch")
+                return 0, [], []
+            return (int(d["chunks_done"]), [np.asarray(d["null_done"], dtype=np.float64)],
+                    [np.asarray(d["alt_done"], dtype=np.float64)])
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile) as exc:
+        warnings.warn(f"unreadable checkpoint {path} ({exc}); recomputing")
+        return 0, [], []
 
 
 @dataclass
@@ -259,18 +295,27 @@ def protassov_lrt(
     chunk ``i``'s refits draw from generators seeded from ``(seed, i)``.
     The refits run in ``sim_dtype`` (float32 by default) and their optima
     are re-evaluated in float64.  ``LRTResult.timings`` holds the seconds
-    of each phase.  ``pdf``: the flux PDF of the simulations ("Gaussian",
+    of each phase (``checkpoint_s``: the checkpoint writes, 0 without one).  ``pdf``: the flux PDF of the simulations ("Gaussian",
     "Lognormal" or "Uniform"); a count of E13 adjustments that hit their
     iteration limit is reported (warned) once, at the end.
     ``keep_simulations``: return every simulated lightcurve in
     ``LRTResult.sim_rates`` / ``sim_dy`` (numpy, (nsims, n)).
 
-    Not ported yet, and refused: ``checkpoint``.
+    ``checkpoint``: an .npz path for the bootstrap.  After each chunk the
+    results so far are written to it atomically (a temporary file and
+    ``os.replace``); a run that finds a file written for the same inputs
+    resumes after its last completed chunk, and since every chunk draws
+    from generators of its own, the resumed run equals the uninterrupted
+    one bit for bit.  A file written for other inputs (a CRC over the data,
+    the posterior draws, the refits' starts and bounds and the settings) or
+    one that cannot be read is recomputed with a warning.  Ignored, with a
+    warning, under ``keep_simulations``.
     """
     if nsims < 1:
         raise ValueError("nsims must be >= 1 (the p-value is the tail fraction of the simulated T distribution)")
-    if checkpoint is not None:
-        raise NotImplementedError("checkpoint/resume is not ported yet (ROADMAP queue 1, item 7)")
+    if keep_simulations and checkpoint is not None:
+        warnings.warn("checkpoint is only supported without keep_simulations; ignored with keep_simulations=True")
+        checkpoint = None
     device = torch.device(device)
     t_start = time.monotonic()
 
@@ -281,7 +326,7 @@ def protassov_lrt(
     sim_dtype = None if sim_dtype is None else getattr(torch, str(sim_dtype).replace("torch.", ""))
     refine_f64 = sim_dtype is not None and sim_dtype != torch.float64
     timings = {"map_fit_s": 0.0, "observed_sampling_s": 0.0, "generation_s": 0.0,
-               "refits_s": 0.0, "refine_s": 0.0}
+               "refits_s": 0.0, "refine_s": 0.0, "checkpoint_s": 0.0}
 
     # 1. observed fits
     def observed(model, kernel, model_seed, name):
@@ -319,7 +364,20 @@ def protassov_lrt(
     n_rows = nsims + (1 if matched_estimator else 0)
     n_chunks = -(-n_rows // chunk)
     null_parts, alt_parts, kept_rates, kept_dy = [], [], [], []
-    for ci in range(n_chunks):
+    chunks_done, ckpt_crc = 0, None
+    if checkpoint is not None:
+        bounds = [np.asarray(k.get_parameter_bounds(), dtype=np.float64) for k in (null_kernel, alt_kernel)]
+        ckpt_crc = _checkpoint_crc(
+            lightcurve, dy_obs, param_samples.cpu().numpy(), obs_start, alt_kernel.get_parameter_vector(), *bounds,
+            settings=(nsims, chunk, seed, sim_walkers, sim_max_steps, str(sim_dtype), pdf.lower(), matched_estimator,
+                      extension_factor, None if sigma_noise is None else float(np.mean(sigma_noise)),
+                      None if sim_early_stop is None else (float(sim_early_stop[0]), int(sim_early_stop[1])),
+                      device.type, "per-row-starts-v2"),
+        )
+        chunks_done, null_parts, alt_parts = _read_checkpoint(checkpoint, ckpt_crc)
+        if chunks_done:
+            _mark(f"resuming the bootstrap after chunk {chunks_done}/{n_chunks}")
+    for ci in range(chunks_done, n_chunks):
         s0 = ci * chunk
         count = max(0, min((ci + 1) * chunk, nsims) - s0)
         last = matched_estimator and ci == n_chunks - 1
@@ -360,6 +418,14 @@ def protassov_lrt(
         null_parts.append(nl.double().cpu().numpy())
         alt_parts.append(al.double().cpu().numpy())
         timings["refine_s"] += time.perf_counter() - clock
+
+        if checkpoint is not None:
+            clock = time.perf_counter()
+            tmp = checkpoint + ".tmp.npz"
+            np.savez(tmp, config_crc=np.int64(ckpt_crc), chunks_done=np.int64(ci + 1),
+                     null_done=np.concatenate(null_parts), alt_done=np.concatenate(alt_parts))
+            os.replace(tmp, checkpoint)
+            timings["checkpoint_s"] += time.perf_counter() - clock
         _mark(f"bootstrap chunk {ci + 1}/{n_chunks} done")
 
     null_lls = np.concatenate(null_parts)

@@ -3,9 +3,13 @@ from mind_the_gaps_tpu_torch.simulator.core import (
     E13Simulator,
     Simulator,
     TK95Simulator,
+    add_poisson_noise,
+    cut_random_segment,
     downsample_cumsum,
     e13_adjust,
     e13_adjust_batch,
+    get_fft,
+    get_segment,
     tk95_rates,
 )
 from mind_the_gaps_tpu_torch.simulator.noise import (
@@ -29,4 +33,8 @@ __all__ = [
     "downsample_cumsum",
     "e13_adjust",
     "e13_adjust_batch",
+    "add_poisson_noise",
+    "get_fft",
+    "get_segment",
+    "cut_random_segment",
 ]

@@ -12,7 +12,13 @@ PyTorch port of ``mind_the_gaps_tpu/simulator/core.py``:
   iteration (``e13_adjust_batch``) in lock-step over a chunk of segments,
   its rank-order remap through ``ops.rank_remap`` (the CUDA sort kernel
   on CUDA tensors);
-- observational noise from ``simulator/noise.py``.
+- observational noise from ``simulator/noise.py``;
+- the single-lightcurve API of the JAX package: ``generate_lightcurve``
+  (one draw through the batched path), ``add_noise``, ``downsample`` and
+  the module functions ``add_poisson_noise``, ``get_fft``, ``get_segment``
+  and ``cut_random_segment``, which draw from an explicit
+  ``numpy.random.Generator`` (or take their draws) where the JAX package
+  used numpy's global state.
 
 The ``Simulator`` geometry (fine-grid step, the next 5-smooth FFT length,
 segment length, the E13 power-of-two cut, window starts/ends, angular
@@ -45,6 +51,10 @@ __all__ = [
     "downsample_cumsum",
     "e13_adjust",
     "e13_adjust_batch",
+    "add_poisson_noise",
+    "get_fft",
+    "get_segment",
+    "cut_random_segment",
 ]
 
 _SQRT_2PI = math.sqrt(2.0 * math.pi)
@@ -255,6 +265,9 @@ class Simulator:
             raise ValueError("%s not implemented! Currently implemented: Gaussian, Uniform or Lognormal" % pdf)
         seed = int(np.random.SeedSequence(random_state).entropy % (2**63))
         self._generator = torch.Generator().manual_seed(seed)
+        self.device = torch.device(device)
+        self._seed = seed
+        self._device_generator = None  # generate_lightcurve's (a stream of its own), made at first use
         if pdf.lower() == "gaussian":
             self.simulator = TK95Simulator(mean)
         else:  # seeded too, on a stream of its own
@@ -293,11 +306,12 @@ class Simulator:
 
         if sigma_noise is None:
             if bkg_rate is None or np.all(np.asarray(bkg_rate) == 0):
-                self.noise = PoissonNoise(self._exposures)
+                self.noise = PoissonNoise(self._exposures, device=device)
             else:
-                self.noise = KraftNoise(self._exposures, np.asarray(bkg_rate) * self._exposures, bkg_rate_err)
+                self.noise = KraftNoise(self._exposures, np.asarray(bkg_rate) * self._exposures, bkg_rate_err,
+                                        device=device)
         else:
-            self.noise = GaussianNoise(self._exposures, sigma_noise)
+            self.noise = GaussianNoise(self._exposures, sigma_noise, device=device)
 
         half_bins = self._exposures / 2 * epsilon
         self.strategy = [(time - hb, time + hb) for time, hb in zip(times, half_bins)]
@@ -436,3 +450,87 @@ class Simulator:
         rate = rate.numpy()
         rate = rate - rate.mean() + self.mean
         return RegularLightcurve(self.sim_timestamps, rate, dt=self.sim_dt)
+
+    def generate_lightcurve(self, normals=None, shift=None, pdf_draws=None) -> np.ndarray:
+        """One realization resampled onto the input timestamps (numpy (n,)):
+        ``simulate_batch`` at B = 1 on ``device``.  ``normals`` (2, n_freq),
+        ``shift`` (time units) and ``pdf_draws`` (cut length,) replace the
+        draws from the simulator's generator."""
+        if self._device_generator is None:
+            self._device_generator = torch.Generator(self.device).manual_seed((self._seed + 2) % (2**63))
+
+        def row(x, dtype=torch.float64):
+            return None if x is None else torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)[None]
+
+        psd = self._psd_values().to(self.device)[None]
+        rates = self.simulate_batch(psd, generator=self._device_generator, normals=row(normals),
+                                    shifts=row(shift), pdf_draws=row(pdf_draws))
+        return rates[0].cpu().numpy()
+
+    def add_noise(self, rates):
+        """Apply the noise model (host API: numpy (noisy rates, dy))."""
+        return self.noise.add_noise(rates)
+
+    def downsample(self, lc: RegularLightcurve) -> list:
+        """Mean rate of an arbitrary regular lightcurve in each exposure bin
+        of the observing strategy (host loop; NaN for an empty bin)."""
+        rates = []
+        for start, end in self.strategy:
+            mask = (lc.time >= start) & (lc.time < end)
+            rates.append(np.mean(lc.countrate[mask]) if mask.any() else np.nan)
+        return rates
+
+
+# ---------------------------------------------------------------------- #
+# module-level host helpers
+# ---------------------------------------------------------------------- #
+def add_poisson_noise(rates, exposures, background_counts=None, bkg_rate_err=None,
+                      rng: Optional[np.random.Generator] = None, counts=None):
+    """Poisson noise and frequentist uncertainties (host path): numpy
+    (net rates, dy).  ``counts`` (the drawn total counts) replaces the draw
+    from ``rng`` (default: a fresh ``numpy.random.default_rng()``)."""
+    rates = np.asarray(rates)
+    if background_counts is None:
+        background_counts = np.zeros(len(rates), dtype=int)
+    if bkg_rate_err is None:
+        bkg_rate_err = np.zeros(len(rates), dtype=int)
+    total_counts = rates * exposures + background_counts
+    if counts is None:
+        counts = (np.random.default_rng() if rng is None else rng).poisson(total_counts)
+    net_counts = counts - background_counts
+    dy = np.sqrt((np.sqrt(counts) / exposures) ** 2 + bkg_rate_err**2)
+    return net_counts / exposures, dy
+
+
+def get_fft(N: int, dt: float, model: Callable, rng: Optional[np.random.Generator] = None,
+            normals=None) -> np.ndarray:
+    """TK95 frequency-domain draw (host path): complex (N // 2 + 1,).
+    ``normals`` (2, N // 2 + 1), the real and imaginary standard normals,
+    replace the draw from ``rng`` (default: a fresh generator)."""
+    freqs = np.fft.rfftfreq(N, dt) * 2 * np.pi
+    if normals is None:
+        normals = (np.random.default_rng() if rng is None else rng).normal(0, size=(2, N // 2 + 1))
+    real, im = np.asarray(normals, dtype=float)
+    complex_fft = np.empty(len(freqs), dtype=complex)
+    complex_fft[1:] = (real + im * 1j)[1:] * np.sqrt(0.5 * np.asarray(model(freqs[1:])))
+    complex_fft[0] = 1e6
+    if N % 2 == 0:
+        complex_fft[-1] = np.real(complex_fft[-1])
+    return complex_fft
+
+
+def get_segment(lc: RegularLightcurve, duration: float, N: int) -> RegularLightcurve:
+    """The Nth consecutive segment of the given duration."""
+    if N < 0:
+        raise ValueError("N must be a non-negative integer.")
+    start = lc.time[0] + duration * N
+    return lc.truncate(start=start, stop=start + duration, method="time")
+
+
+def cut_random_segment(lc: RegularLightcurve, duration: float, rng: Optional[np.random.Generator] = None,
+                       shift=None) -> RegularLightcurve:
+    """A random segment of the given duration (host path); ``shift`` (its
+    start time) replaces the uniform draw from ``rng``."""
+    if shift is None:
+        shift = (np.random.default_rng() if rng is None else rng).uniform(lc.time[0], lc.time[-1] - duration)
+    return lc.truncate(start=shift, stop=shift + duration, method="time")

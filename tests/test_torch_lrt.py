@@ -174,18 +174,18 @@ def test_protassov_lrt_ab_against_jax():
     np.testing.assert_allclose(a.t_obs, ref.t_obs, atol=4.0)
     assert a.t_dist.shape == (8,) and np.all(np.isfinite(a.t_dist))
     assert 0.0 <= a.p_value <= 1.0
-    assert set(a.timings) == {"map_fit_s", "observed_sampling_s", "generation_s", "refits_s", "refine_s"}
+    assert set(a.timings) == {"map_fit_s", "observed_sampling_s", "generation_s", "refits_s", "refine_s",
+                              "checkpoint_s"}
     assert a.t_obs == b.t_obs and a.p_value == b.p_value
     np.testing.assert_array_equal(a.t_dist, b.t_dist)
 
 
 def test_options_not_ported_are_refused():
-    """checkpoint/resume and mesh mode are not ported: they raise (a fitted
-    mean and chains > 1 are ported, and refused only with a mesh)."""
+    """Mesh mode is not ported: it raises (a fitted mean and chains > 1 are
+    ported, and refused only with a mesh; checkpoint/resume is ported,
+    test_checkpoint_resume_reproduces_full_run)."""
     lc = lightcurve_from_jax(_drw_lc(seed=10, n=30))
     null_t, alt_t = _kernels(tk)
-    with pytest.raises(NotImplementedError):
-        protassov_lrt(lc, null_t, alt_t, nsims=2, checkpoint="x.npz", device="cpu")
     gp = TGP(lc, null_t, device="cpu")
     with pytest.raises(NotImplementedError):
         gp.derive_posteriors(mesh=object(), fit=False, max_steps=10)
@@ -194,6 +194,57 @@ def test_options_not_ported_are_refused():
             mesh=object(), chains=2, fit=False, max_steps=10)
     with pytest.raises(ValueError):
         gp.derive_posteriors(chains=0, fit=False, max_steps=10)
+
+
+def test_checkpoint_resume_reproduces_full_run(tmp_path):
+    """test_lrt.py's case in the port: a bootstrap resumed from its
+    checkpoint equals the uninterrupted run exactly (each chunk draws from
+    generators of its own), and a changed configuration (the seed, or
+    sigma_noise, which changes only the simulations) recomputes with a
+    warning; an unreadable file too, and keep_simulations ignores the
+    checkpoint with a warning."""
+    import os
+
+    lc = lightcurve_from_jax(_drw_lc(seed=13, n=80))
+    null_t, alt_t = _kernels(tk)
+    null_model, alt_model = TGP(lc, null_t, device="cpu"), TGP(lc, alt_t, device="cpu")
+    null_model.derive_posteriors(max_steps=150, walkers=8, seed=31, converge=False)
+    alt_model.derive_posteriors(max_steps=150, walkers=8, seed=32, converge=False)
+    common = dict(nsims=8, chunk=4, seed=5, null_model=null_model, alt_model=alt_model, sim_max_steps=25,
+                  sim_walkers=4, sigma_noise=0.3, device="cpu")
+    ckpt = str(tmp_path / "boot.npz")
+    full = protassov_lrt(lc, null_t, alt_t, **common)
+    res1 = protassov_lrt(lc, null_t, alt_t, checkpoint=ckpt, **common)
+    np.testing.assert_array_equal(res1.t_dist, full.t_dist)
+    assert full.timings["checkpoint_s"] == 0.0 and res1.timings["checkpoint_s"] > 0.0  # timed apart from refine_s
+    d = dict(np.load(ckpt))
+    assert int(d["chunks_done"]) == 3 and d["null_done"].shape == (9,)  # 8 simulations and the observed row
+
+    # an interruption: the file rewound to 1 completed chunk
+    np.savez(ckpt + ".tmp.npz", config_crc=d["config_crc"], chunks_done=np.int64(1),
+             null_done=d["null_done"][:4], alt_done=d["alt_done"][:4])
+    os.replace(ckpt + ".tmp.npz", ckpt)
+    res2 = protassov_lrt(lc, null_t, alt_t, checkpoint=ckpt, **common)
+    np.testing.assert_array_equal(res2.t_dist, full.t_dist)
+    assert res2.p_value == full.p_value and res2.t_obs == full.t_obs
+
+    for change in ({"seed": 6}, {"sigma_noise": 0.5}):
+        other = dict(common, **change)
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            res3 = protassov_lrt(lc, null_t, alt_t, checkpoint=ckpt, **other)
+        assert any("different" in str(w.message) for w in rec), change
+        assert np.isfinite(res3.t_dist).all()
+
+    with open(ckpt, "wb") as fh:
+        fh.write(b"not an npz file")
+    with pytest.warns(UserWarning, match="unreadable"):
+        res4 = protassov_lrt(lc, null_t, alt_t, checkpoint=ckpt, **common)
+    np.testing.assert_array_equal(res4.t_dist, full.t_dist)
+    with pytest.warns(UserWarning, match="keep_simulations"):
+        res5 = protassov_lrt(lc, null_t, alt_t, checkpoint=str(tmp_path / "kept.npz"), keep_simulations=True,
+                             **common)
+    assert not (tmp_path / "kept.npz").exists() and res5.sim_rates.shape == (8, lc.n)
 
 
 def test_entry_points_default_to_cuda():
@@ -224,7 +275,9 @@ def test_entry_points_default_to_cuda():
                     found[qual] = param.default
     for entry in ("lrt.protassov_lrt", "lrt.fit_lightcurves_batch", "lrt.loglikes_f64_at",
                   "gpmodelling.GPModelling.__init__", "simulator.core.E13Simulator.__init__",
-                  "simulator.core.Simulator.__init__"):
+                  "simulator.core.Simulator.__init__", "simulator.noise.KraftNoise.__init__",
+                  "simulator.noise.PoissonNoise.__init__", "simulator.noise.kraft_tables",
+                  "ops.fma_probe.probe", "stats.kraft_posterior_median", "stats.kraft_hpd_interval"):
         assert f"mind_the_gaps_tpu_torch.{entry}" in found, entry
     for entry in ("ops.celerite_grad.celerite_loglike_fn", "ops.celerite_grad.celerite_log_likelihood_and_grad",
                   "sampler.ensemble.sample_ensemble_grouped", "sampler.ensemble.max_loglike_ensemble_impl",
