@@ -11,10 +11,12 @@ Phases, each printed with its seconds:
    one process per source, all started together, into
    ``mind_the_gaps_tpu_torch/_build`` (keyed by a hash of the source);
 3. kernels against plain: ``celerite_log_likelihood_and_grad`` (the MAP
-   fit's forward + adjoint kernel: value and every gradient) at N=5000 for
-   R = 1 and 3 (the main path's fits), R = 7, a runtime R = 10, a
-   per-element residual with a linear mean and a non-positive-definite
-   theta; ``celerite_log_likelihood`` (packed and dense-S
+   fit's forward + adjoint kernel, a chain lane and two helper warps a
+   likelihood: value and every gradient) at N=5000 for R = 1 and 3 (the
+   main path's fits), R = 7, a runtime R = 10, a per-element residual with
+   a linear mean and a non-positive-definite theta, each launched twice
+   (the same bits) and its value held against the forward kernel's, its
+   time beside its latency floor; ``celerite_log_likelihood`` (packed and dense-S
    bodies, every layout, the compile-time widths up to R = 8 and the
    runtime-R body), ``rank_remap`` and ``sort_kv`` (the CUDA kernels, every
    tier and its edges) against their plain PyTorch versions on the same
@@ -115,7 +117,16 @@ BEFORE_REDESIGN_MS = {
     "sort_kv (128, 65536) f64": 1.713,
     "sort_kv (128, 16384) f32": 0.220,
     "sort_kv (64, 8) f32": 0.031,
+    # the gradient kernel when it ran one thread a likelihood (PERF.md section 6)
+    "MAP fit null": 4.607,
+    "MAP fit alt": 7.731,
+    "R=7 DRW+3 Lorentzians: B=1": 17.517,
+    "R=10 runtime-R body: B=1": 183.888,
+    "linear mean, per-element residuals: B=2": 7.778,
 }
+# the gradient kernel's aim: at most this many times its latency floor at
+# the MAP fit's shapes (R = 1 and 3)
+GRAD_FLOOR_AIM = 3.0
 
 
 def before_note(name):
@@ -224,13 +235,17 @@ def grad_bound(case):
 def grad_cases(card):
     """Phase 3, the MAP fit's kernel: value and gradients against the plain
     version (autograd through solver/semiseparable.py, on the card) at
-    N=5000: value rtol 1e-10, each gradient within 1e-8 of its largest
-    component."""
+    N=5000, R = 1, 3, 7, 10 and 16 (the chunk buffers in the global scratch
+    area): value rtol 1e-10, each gradient within 1e-8
+    of its largest component; a second launch on the same inputs gives the
+    same bits; the value equals the forward kernel's
+    (``celerite_log_likelihood``) to rtol 1e-12."""
     import numpy as np
     import torch
 
     from mind_the_gaps_tpu_torch.kernels import DampedRandomWalk, Lorentzian, RealTerm
     from mind_the_gaps_tpu_torch.models.mean_models import LinearModel
+    from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood
     from mind_the_gaps_tpu_torch.ops.celerite_grad import (
         celerite_log_likelihood_and_grad,
         celerite_log_likelihood_and_grad_plain,
@@ -244,6 +259,7 @@ def grad_cases(card):
     diag = torch.as_tensor((lc.dy + 1e-12) ** 2, dtype=torch.float64, device=dev)
     drw3l = alt + Lorentzian(-0.8, 1.5, -1.6) + Lorentzian(-0.6, 1.0, -1.2)  # R = 7
     wide10 = drw3l + RealTerm(-0.5, -2.0) + Lorentzian(-1.2, 1.2, -1.0)  # R = 10: runtime-R body
+    wide16 = wide10 + Lorentzian(-1.4, 1.1, -0.8) + Lorentzian(-1.6, 0.9, -0.6) + Lorentzian(-1.8, 0.8, -0.4)
     n = t.shape[0]
 
     def args(kernel, B=1, per_element_mean=False):
@@ -262,6 +278,7 @@ def grad_cases(card):
         ("MAP fit alt: B=1 N=5000 R=3 (DRW + Lorentzian)", args(alt)),
         ("R=7 DRW+3 Lorentzians: B=1 N=5000", args(drw3l)),
         ("R=10 runtime-R body: B=1 N=5000", args(wide10)),
+        ("R=16 runtime-R body, buffers in global scratch: B=1 N=5000", args(wide16)),
         ("linear mean, per-element residuals: B=2 N=5000 R=3", args(alt, B=2, per_element_mean=True)),
     ]
     results = []
@@ -283,13 +300,21 @@ def grad_cases(card):
             if g_ref.numel():
                 rel = float((g - g_ref).abs().max() / g_ref.abs().max().clamp_min(1e-300))
                 worst = max(worst, rel)
+        again = celerite_log_likelihood_and_grad(**a)
+        same = torch.equal(again[0], out[0]) and all(torch.equal(u, v) for u, v in zip(again[1], out[1]))
+        check(same, f"{name}: a second launch on the same inputs gave other bits")
+        fwd = celerite_log_likelihood(a["coeffs"], a["t"], a["y"], a["diag"], mean=a.get("mean"),
+                                      extra_diag=a["extra_diag"])
+        fwd_rel = float(((ll - fwd).abs() / fwd.abs()).max())
+        check(fwd_rel <= 1e-12, f"{name}: the value differs from the forward kernel's by {fwd_rel:.3e} (rtol 1e-12)")
         ms = cuda_ms(lambda: celerite_log_likelihood_and_grad(**a), reps=10)
         c = a["coeffs"]
         case = dict(name=name, max_abs_err=max_abs, grad_rel_err=worst, ms=ms, plain_ms=plain_ms, B=c.ar.shape[0],
                     N=n, jr=c.ar.shape[1], jc=c.ac.shape[1], y_numel=a["y"].numel())
         case["bound_ms"], case["bound_by"] = grad_bound(case)
         print(f"[kernel] celerite_grad {name}: value max_abs_err={max_abs:.3e} (rtol 1e-10), gradients "
-              f"{worst:.3e} of their largest (1e-8), kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+              f"{worst:.3e} of their largest (1e-8), repeat launch bit-identical, value against the forward "
+              f"kernel {fwd_rel:.3e} (rtol 1e-12), kernel {ms:.3f} ms{before_note(name)}, plain {plain_ms:.1f} ms, "
               f"bound {case['bound_ms']:.5f} ms ({case['bound_by']}) [{card}]", flush=True)
         check(ok and worst <= 1e-8, f"{name}: the gradient kernel disagrees with its plain version")
         results.append(case)
@@ -874,9 +899,10 @@ def main(argv=None):
     probe32 = probe_cases(card)[0]
     probe_launches, latency = probe_entry(card)
     for c in grad:
-        print(f"[floor] celerite_grad {c['name']}: latency floor {latency_floor_ms(c, latency['float64'], 2):.4f} ms "
-              f"(forward + adjoint chains at {latency['float64']:.4f} ns a dependent FMA), kernel {c['ms']:.3f} ms "
-              f"[{card}]", flush=True)
+        c["floor_ms"] = latency_floor_ms(c, latency["float64"], 2)
+        print(f"[floor] celerite_grad {c['name']}: latency floor {c['floor_ms']:.4f} ms (forward + adjoint chains "
+              f"of depth {chain_depth(c['jr'], c['jc'])} at {latency['float64']:.4f} ns a dependent FMA), kernel "
+              f"{c['ms']:.3f} ms = {c['ms'] / c['floor_ms']:.2f}x the floor [{card}]", flush=True)
     for c in cel_cases:
         lat = latency["float64" if c["itemsize"] == 8 else "float32"]
         print(f"[floor] celerite {c['name']}: latency floor {latency_floor_ms(c, lat):.4f} ms (chain depth "
@@ -1067,6 +1093,11 @@ def main(argv=None):
           f"{remap['plain_ms']:.3f} ms: {'met' if remap['ms'] <= remap['plain_ms'] else 'NOT met'}", flush=True)
     print(f"[goal] celerite observed-fit shape: {obs['ms']:.3f} ms against 1.2 ms: "
           f"{'met' if obs['ms'] <= 1.2 else 'NOT met'}", flush=True)
+    for prefix in ("MAP fit null", "MAP fit alt"):
+        c = named(grad, prefix)
+        ratio = c["ms"] / c["floor_ms"]
+        print(f"[goal] celerite_grad {prefix}: {c['ms']:.3f} ms, {ratio:.2f}x its latency floor against "
+              f"{GRAD_FLOOR_AIM:.0f}x: {'met' if ratio <= GRAD_FLOOR_AIM else 'NOT met'}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         row("celerite_grad, forward + adjoint (MAP fit alt shape)", "cuda", GRAD_SOURCE, GRAD_REPLACES,

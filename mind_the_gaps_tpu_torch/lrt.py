@@ -35,6 +35,7 @@ from mind_the_gaps_tpu_torch.gpmodelling import GPModelling, synchronize
 from mind_the_gaps_tpu_torch.lightcurves import GappyLightcurve
 from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood
 from mind_the_gaps_tpu_torch.sampler.ensemble import stretch_draws, stretch_half
+from mind_the_gaps_tpu_torch.solver.batched import batched_log_prob_fn
 
 __all__ = [
     "LRTResult",
@@ -188,16 +189,10 @@ def batched_max_loglike(
     bounds = np.asarray(kernel.get_parameter_bounds(), dtype=np.float64)
     lo = torch.as_tensor(bounds[:, 0], dtype=dtype, device=device)
     hi = torch.as_tensor(bounds[:, 1], dtype=dtype, device=device)
-    ys_c, diags_c = ys.to(dtype), diags.to(dtype)
-    mean_b = ys_c.mean(1).repeat_interleave(half)
+    log_prob = batched_log_prob_fn(kernel, t, ys, diags, repeats=half, dtype=dtype)
 
     def lp_eval(th):  # (G, half, D) -> (G, half)
-        th = th.reshape(G * half, nk)
-        coeffs = kernel.coefficients(th)
-        lp = kernel.log_prior(th)
-        jitter = kernel.jitter(th)
-        ll = celerite_log_likelihood(coeffs, t, ys_c, diags_c, mean=mean_b, repeats=half, extra_diag=jitter)
-        return torch.where(torch.isfinite(lp), lp + ll, ll.new_full((), -math.inf)).reshape(G, half)
+        return log_prob(th.reshape(G * half, nk)).reshape(G, half)
 
     base = torch.as_tensor(theta0, device=device).to(dtype)
     base = base[:, None, :] if base.dim() == 2 else base

@@ -15,13 +15,17 @@ JAX package's ``GPModelling.fit`` runs; no Pallas kernel computes it.
 Layouts: ``y`` shared (N,) or per element (B, N), ``diag`` shared (N,);
 ``mean`` and ``extra_diag`` optional (B,).  float64 only: the MAP objective
 is float64 in both packages (a float32 instantiation waits for a path that
-needs it).  Any R = Jr + 2 Jc >= 1.
+needs it).  Any R = Jr + 2 Jc >= 1; from R = 14 on an H100 the kernel's
+chunk buffers no longer fit in shared memory and live in a global scratch
+area that the wrapper allocates (the size comes from the library), so such
+R run slower.
 
 A CPU tensor goes to the plain version
 (``celerite_log_likelihood_and_grad_plain``: ``solver.semiseparable``'s
 recursion per element, with its autograd gradient).  A CUDA tensor launches
 the kernel of ``csrc/celerite_grad.cuh`` (built as ``celerite_grad_f64.cu``)
-on the current stream, or raises: there is no fallback.
+on the current stream, one block of three warps a likelihood (a chain
+lane and two helper warps), or raises: there is no fallback.
 ``celerite_log_likelihood_and_grad.launches`` counts the launches.
 
 ``celerite_loglike_fn`` is the ``torch.autograd.Function`` over the op:
@@ -53,7 +57,6 @@ __all__ = [
 _ENTRY = "celerite_grad_f64"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_I, _I] + [_P] * 3 + [_I] + [_P] * 9 + [_I, _I] + [_P] * 12
-_MAX_STATIC_R = 8  # R with a compile-time body (kMaxStatic in the .cuh)
 
 
 class LogLikelihoodGrads(NamedTuple):
@@ -71,12 +74,8 @@ class LogLikelihoodGrads(NamedTuple):
 
 def _record_words(R: int) -> int:
     """float64 words the kernel stores per step of one likelihood: D, z,
-    W, f, P, V and the packed S."""
-    return 2 + 4 * R + R * (R + 1) // 2
-
-
-def _scratch_words(R: int) -> int:
-    return R * (R + 1) + 18 * R
+    W, f and the packed S."""
+    return 2 + 2 * R + R * (R + 1) // 2
 
 
 def _check(coeffs, t, y, diag, mean, extra_diag):
@@ -145,6 +144,14 @@ def _entry():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _scratch_entry():
+    fn = getattr(load_library(_ENTRY), _ENTRY + "_scratch_words")
+    fn.argtypes = [_I, _I, _I]
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
 def _ptr(x):
     return None if x is None else x.data_ptr()
 
@@ -175,9 +182,11 @@ def _launch(coeffs, t, y, diag, mean=None, extra_diag=None):
     if B == 0:
         return ll, grads
     ws = torch.empty(B * N * _record_words(R), dtype=torch.float64, device=device)
-    scratch = None if R <= _MAX_STATIC_R else torch.empty(B * _scratch_words(R), dtype=torch.float64,
-                                                         device=device)
     with device_scope(device):
+        words = _scratch_entry()(Jr, Jc, B)
+        if words < 0:
+            raise RuntimeError(f"celerite_grad scratch query failed (code {-words}; Jr={Jr}, Jc={Jc}, B={B})")
+        scratch = torch.empty(words, dtype=torch.float64, device=device) if words else None
         rc = _entry()(
             Jr, Jc, tc.data_ptr(), dt.data_ptr(), y.data_ptr(), 1 if y.dim() == 1 else B, diag.data_ptr(),
             *(c.data_ptr() for c in cs), _ptr(mean), _ptr(extra_diag), B, N, ws.data_ptr(), _ptr(scratch),

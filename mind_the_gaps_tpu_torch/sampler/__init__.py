@@ -2,9 +2,12 @@
 from mind_the_gaps_tpu_torch.sampler.autocorr import (
     integrated_autocorr_time,
     integrated_autocorr_time_masked,
+    integrated_autocorr_time_np,
 )
 from mind_the_gaps_tpu_torch.sampler.ensemble import (
     max_loglike_ensemble_impl,
+    run_ensemble,
+    sample_ensemble,
     sample_ensemble_grouped,
     sample_ensemble_impl,
     stretch_draws,
@@ -12,6 +15,8 @@ from mind_the_gaps_tpu_torch.sampler.ensemble import (
 )
 
 __all__ = [
+    "run_ensemble",
+    "sample_ensemble",
     "sample_ensemble_impl",
     "sample_ensemble_grouped",
     "max_loglike_ensemble_impl",
@@ -19,4 +24,5 @@ __all__ = [
     "stretch_half",
     "integrated_autocorr_time",
     "integrated_autocorr_time_masked",
+    "integrated_autocorr_time_np",
 ]

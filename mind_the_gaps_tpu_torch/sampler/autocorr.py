@@ -3,13 +3,20 @@
 PyTorch port of ``mind_the_gaps_tpu/sampler/autocorr.py``: the estimator
 of emcee's ``get_autocorr_time(tol=0)`` — per-walker FFT autocorrelation,
 averaged across walkers, tau = 2 cumsum(rho) - 1 with Sokal's automated
-window (c = 5) — in float64 throughout.
+window (c = 5) — in float64 throughout.  ``autocorr_function`` and
+``integrated_autocorr_time_np`` are the host (numpy) forms.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["integrated_autocorr_time", "integrated_autocorr_time_masked"]
+__all__ = [
+    "integrated_autocorr_time",
+    "integrated_autocorr_time_masked",
+    "integrated_autocorr_time_np",
+    "autocorr_function",
+]
 
 
 def _next_pow_two(n: int) -> int:
@@ -17,6 +24,24 @@ def _next_pow_two(n: int) -> int:
     while i < n:
         i <<= 1
     return i
+
+
+def autocorr_function(x):
+    """Normalized autocorrelation of a 1-D numpy series by FFT, in float64
+    (the JAX package rounds the series to float32 first, for the TPU's
+    complex64-only FFT)."""
+    x = np.asarray(x)
+    n = x.shape[0]
+    m = 2 * _next_pow_two(n)
+    f = np.fft.fft(x - np.mean(x), n=m)
+    acf = np.fft.ifft(f * np.conj(f))[:n].real
+    return acf / acf[0]
+
+
+def integrated_autocorr_time_np(chain, c: float = 5.0):
+    """tau (D,) of a numpy (n_steps, W, D) chain as numpy, on the host: the
+    estimator of ``integrated_autocorr_time``."""
+    return integrated_autocorr_time(torch.as_tensor(np.asarray(chain, dtype=np.float64)), c).numpy()
 
 
 def integrated_autocorr_time_masked(chain_buf, n_valid: int, c: float = 5.0):

@@ -22,8 +22,10 @@ import torch
 __all__ = [
     "stretch_draws",
     "stretch_half",
+    "sample_ensemble",
     "sample_ensemble_impl",
     "sample_ensemble_grouped",
+    "run_ensemble",
     "max_loglike_ensemble_impl",
 ]
 
@@ -85,6 +87,15 @@ def sample_ensemble_impl(
         draws = tuple(d[:, :, None] for d in draws)
     chain, log_probs, acc, final = sample_ensemble_grouped(log_prob_fn, state[None], n_steps, generator, a, draws)
     return chain[:, 0], log_probs[:, 0], acc, final[0]
+
+
+sample_ensemble = sample_ensemble_impl
+
+
+def run_ensemble(log_prob_fn: Callable, initial_state, n_steps: int,
+                 generator: Optional[torch.Generator] = None, a: float = 2.0, draws=None):
+    """Alias of ``sample_ensemble`` (API stability)."""
+    return sample_ensemble(log_prob_fn, initial_state, n_steps, generator, a, draws)
 
 
 def sample_ensemble_grouped(

@@ -1,5 +1,6 @@
 """Lightcurve simulation: TK95, the E13 flux-PDF adjustment, observational noise."""
 from mind_the_gaps_tpu_torch.simulator.core import (
+    BaseSimulatorMethod,
     E13Simulator,
     Simulator,
     TK95Simulator,
@@ -26,6 +27,7 @@ __all__ = [
     "PoissonNoise",
     "KraftNoise",
     "GaussianNoise",
+    "BaseSimulatorMethod",
     "Simulator",
     "TK95Simulator",
     "E13Simulator",

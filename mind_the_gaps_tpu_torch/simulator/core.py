@@ -354,6 +354,12 @@ class Simulator:
             raise ValueError("PSD model must be callable (e.g., a function or a kernel's get_psd).")
         self._psd_model = new_psd_model
 
+    def set_psd_params(self, psd_params: dict):
+        """Set attributes on the PSD model object (reference
+        simulator.py:282-298); the next draw evaluates the PSD with them."""
+        for par in psd_params:
+            setattr(self._psd_model, par, psd_params[par])
+
     @property
     def omega(self):
         """Angular frequencies of the PSD draw (entry 0, zero, is unused)."""

@@ -13,7 +13,13 @@ from mind_the_gaps_tpu_torch.solver.numpy_ref import numpy_log_likelihood
 from mind_the_gaps_tpu_torch.solver.semiseparable import (
     CeleriteMatrices,
     build_matrices,
+    factor,
+    inverse_diag,
     log_likelihood,
+    predict,
+    predict_at,
+    predict_mean,
+    solve,
 )
 
 __all__ = [
@@ -21,7 +27,13 @@ __all__ = [
     "dense_log_likelihood",
     "CeleriteMatrices",
     "build_matrices",
+    "factor",
     "log_likelihood",
+    "solve",
+    "predict_mean",
+    "predict",
+    "predict_at",
+    "inverse_diag",
     "batched_log_likelihood",
     "numpy_log_likelihood",
 ]

@@ -43,7 +43,7 @@ import math
 
 import torch
 
-__all__ = ["batched_log_likelihood", "check_layout", "chunk_sums", "CHUNK"]
+__all__ = ["batched_log_likelihood", "batched_log_prob_fn", "check_layout", "chunk_sums", "CHUNK"]
 
 CHUNK = 32  # steps per chunk of the sums (the kernel's kChunk)
 
@@ -175,3 +175,43 @@ def batched_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, extr
         ok = ok & (D > 0.0)
     ll = -0.5 * (chunk_sums(torch.stack(quads)) + chunk_sums(torch.stack(logs)) + N * math.log(2.0 * math.pi))
     return torch.where(ok, ll, ll.new_full((), -math.inf))
+
+
+def batched_log_prob_fn(kernel, t, y, diag, subtract_mean: bool = True, repeats: int = 1, dtype=None):
+    """thetas (B, D) -> log-probs (B,): the kernel's flat prior within its
+    bounds plus the batched likelihood of ``ops.celerite_log_likelihood``
+    (the CUDA kernel for tensors on a card, this module's recursion on the
+    CPU); the sampler's inner loop.
+
+    ``y``/``diag``: (N,) shared or (G, N) per group with B = G *
+    ``repeats``.  With ``subtract_mean``, each element's constant mean is
+    the mean of its own data (the reference's default unfitted
+    ConstantModel).  ``dtype`` selects the likelihood's precision (default:
+    that of ``y``)."""
+    from mind_the_gaps_tpu_torch.ops.celerite import celerite_log_likelihood  # it imports this module
+
+    y = torch.as_tensor(y)
+    dtype = y.dtype if dtype is None else dtype
+    y = y.to(dtype)
+    diag = torch.as_tensor(diag, device=y.device).to(dtype)
+    grouped = y.dim() > 1 or diag.dim() > 1
+    data_means = (y.mean() if y.dim() == 1 else y.mean(1)) if subtract_mean else None
+    means = {}  # batch size -> its (B,) means, built once
+
+    def log_prob(thetas):
+        B = thetas.shape[0]
+        thetas = thetas.to(dtype)
+        coeffs = kernel.coefficients(thetas)
+        lp = kernel.log_prior(thetas)
+        jitter = kernel.jitter(thetas)
+        mean = None
+        if subtract_mean:
+            mean = means.get(B)
+            if mean is None:
+                mean = data_means.repeat(B) if y.dim() == 1 else data_means.repeat_interleave(repeats)
+                means[B] = mean
+        ll = celerite_log_likelihood(coeffs, t, y, diag, mean=mean, repeats=repeats if grouped else 1,
+                                     extra_diag=jitter)
+        return torch.where(torch.isfinite(lp), lp + ll, ll.new_full((), -math.inf))
+
+    return log_prob

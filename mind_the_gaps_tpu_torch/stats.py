@@ -45,6 +45,7 @@ __all__ = [
     "bic",
     "aic",
     "aicc",
+    "neg_log_like",
     "sample_pdf",
     "kraft_posterior_median",
     "kraft_hpd_interval",
@@ -188,6 +189,14 @@ def aic(loglikehood, k):
 def aicc(loglikehood, n, k):
     """AIC corrected for finite sample size."""
     return aic(loglikehood, k) + 2 * k * (k + 1) / (n - k - 1)
+
+
+def neg_log_like(params, y, gp):
+    """The negated log-likelihood of ``y`` under ``gp`` (any object with
+    ``set_parameter_vector`` and ``log_likelihood(y)``) at ``params``; kept
+    for parity with reference stats.py:149."""
+    gp.set_parameter_vector(params)
+    return -gp.log_likelihood(y)
 
 
 # ---------------------------------------------------------------------- #

@@ -9,8 +9,15 @@ gradient (``ops.celerite_grad``).
   theta gives -inf and a zero gradient.
 - The autograd function (``celerite_loglike_fn``) hands on those gradients,
   scaled, to the coefficients, ``y``, ``mean`` and ``extra_diag``.
-- On a CUDA card: the kernel against its plain version at the same
-  tolerances, its launch count, and the refusals.
+- On a CUDA card: the kernel (a block of a chain lane and two helper
+  warps a likelihood) against its plain version at the same tolerances, at
+  R = 1, 3, 4, 7 and the runtime-R body at R = 10, for one likelihood, three
+  sharing y and four per-element ones; at R = 14, 16 and 90, where the chunk
+  buffers and then the runtime-R state no longer fit in shared memory and
+  live in the global scratch area; its launch count; two launches
+  on the same inputs give the same bits (the lanes' partial sums are
+  reduced in a fixed order); its value against the forward kernel's
+  (``ops.celerite_log_likelihood``) to rtol 1e-12; and the refusals.
 
 JAX is imported inside the tests that compare with it, so that the
 ``cuda`` cases also run where only PyTorch is installed:
@@ -168,17 +175,68 @@ def _to(x, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(KERNELS))
-@pytest.mark.parametrize("per_element", [False, True])
-def test_kernel_matches_plain_on_card(cuda, name, per_element):
-    x = _to(_inputs(name, B=3, n=400, seed=6, per_element=per_element), cuda)
+@pytest.mark.parametrize("per_element,B", [(False, 1), (False, 3), (True, 4)])
+def test_kernel_matches_plain_on_card(cuda, name, per_element, B):
+    """The MAP fit's shape (B = 1, shared y), several likelihoods sharing y
+    (B = 3) and the fitted mean's (B = 4, per-element residuals)."""
+    x = _to(_inputs(name, B=B, n=400, seed=6, per_element=per_element), cuda)
     before = celerite_log_likelihood_and_grad.launches
     ll, grads = celerite_log_likelihood_and_grad(**x)
     torch.cuda.synchronize()
     assert celerite_log_likelihood_and_grad.launches == before + 1
     ll_ref, g_ref = celerite_log_likelihood_and_grad_plain(**x)
     torch.testing.assert_close(ll, ll_ref, rtol=1e-10, atol=0)
-    for b in range(3):
+    for b in range(B):
         _assert_grads_close([g[b] for g in grads], [g[b] for g in g_ref])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qpo,n", [(6, 300), (7, 300), (44, 64)])
+def test_kernel_wide_r_on_card(cuda, n_qpo, n):
+    """R = 2 + 2 n_qpo = 14 and 16 (the chunk buffers in the global scratch
+    area on an H100) and 90 (the runtime-R state there too) against the
+    plain version, for two likelihoods."""
+    m = tk
+    kt = m.DampedRandomWalk(1.0, -3.0) + m.RealTerm(-0.5, -2.0)
+    for q in range(n_qpo):
+        kt = kt + m.Lorentzian(-1.0 - 0.02 * q, 2.0 - 0.02 * q, -2.0 + 0.02 * q)
+    rng = np.random.default_rng(9)
+    t = torch.as_tensor(np.cumsum(rng.uniform(2.0, 8.0, n)), device=cuda)
+    th = torch.as_tensor(kt.get_parameter_vector() + 0.05 * rng.normal(size=(2, kt.ndim)), device=cuda)
+    x = dict(coeffs=kt.coefficients(th), t=t, y=torch.as_tensor(10.0 + rng.normal(0.0, 2.0, n), device=cuda),
+             diag=torch.full((n,), 0.1, dtype=torch.float64, device=cuda))
+    assert x["coeffs"].ar.shape[1] + 2 * x["coeffs"].ac.shape[1] == 2 + 2 * n_qpo
+    ll, grads = celerite_log_likelihood_and_grad(**x)
+    ll_ref, g_ref = celerite_log_likelihood_and_grad_plain(**x)
+    assert bool(torch.isfinite(ll_ref).all())
+    torch.testing.assert_close(ll, ll_ref, rtol=1e-10, atol=0)
+    for b in range(2):
+        _assert_grads_close([g[b] for g in grads], [g[b] for g in g_ref])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["drw", "drw_qpo", "drw_3qpo", "runtime_r10"])
+def test_kernel_repeats_bit_for_bit_on_card(cuda, name):
+    x = _to(_inputs(name, B=2, n=1000, seed=10, per_element=True), cuda)
+    a = celerite_log_likelihood_and_grad(**x)
+    b = celerite_log_likelihood_and_grad(**x)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(u, v) for u, v in zip(a[1], b[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["drw", "drw_qpo", "drw_3qpo", "runtime_r10"])
+def test_kernel_value_equals_forward_kernel_on_card(cuda, name):
+    """The same log-likelihood as the forward kernel, which sums its terms
+    in the same order (the two recursions differ in their last bits: global
+    against local phase)."""
+    from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood
+
+    x = _to(_inputs(name, B=3, n=2000, seed=11), cuda)
+    ll, _ = celerite_log_likelihood_and_grad(**x)
+    fwd = celerite_log_likelihood(x["coeffs"], x["t"], x["y"], x["diag"], mean=x["mean"], extra_diag=x["extra_diag"])
+    torch.testing.assert_close(ll, fwd, rtol=1e-12, atol=0)
 
 
 @pytest.mark.cuda
