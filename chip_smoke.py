@@ -58,7 +58,18 @@ Phases, each printed with its seconds:
    on the card against the plain version on the CPU (1e-9); then the
    resume check on the lrt's fitted models at chunk=128: the t_dist of a
    run resumed from a checkpoint rewound to 2 chunks must equal the
-   uninterrupted run's (``np.array_equal``).
+   uninterrupted run's (``np.array_equal``);
+11. model selection and the periodogram at full width, on phase 4's N=5000
+   data: ``selection.compare_models`` with the model-selection tutorial's
+   four candidates (DRW, SHO, Matern32, DRW+QPO: R = 1, 4, 2, 3), 24
+   walkers, max_steps 4000, seed 0, each candidate's max log-likelihood
+   against the plain float64 likelihood on the CPU (rtol 1e-10), then the
+   gradient kernel against its plain version at the R = 2 and R = 4
+   MAP-fit shapes beside its latency floor; ``GPModelling.fit_device``
+   against ``fit()`` for phase 4's null and alternative (nll within 1e-3);
+   ``periodogram.lomb_scargle`` over ``autofrequency``'s 62,500 frequencies
+   with dy, each normalization within 1e-9 x max(power) of the CPU's, with
+   its time and peak memory, and the 1% false-alarm level.
 
 Phase 3 also holds the latency probe ``ops/fma_probe.py`` (``csrc/fma_chain.cu``,
 dependent multiply-add chains) against its plain version in float32 and
@@ -232,6 +243,57 @@ def grad_bound(case):
     return bound(n_bytes, B * N * grad_step_ops(jr, jc), 8)
 
 
+def grad_case(card, name, a):
+    """One gradient-kernel case (``a``: the op's arguments on the card):
+    value and gradients against the plain version (value rtol 1e-10, each
+    gradient within 1e-8 of its largest component), a second launch bit
+    for bit, the value against the forward kernel's (rtol 1e-12), its time
+    from CUDA events and its bound."""
+    import torch
+
+    from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood
+    from mind_the_gaps_tpu_torch.ops.celerite_grad import (
+        celerite_log_likelihood_and_grad,
+        celerite_log_likelihood_and_grad_plain,
+    )
+
+    out = celerite_log_likelihood_and_grad(**a)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = celerite_log_likelihood_and_grad_plain(**a)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    ll, ll_ref = out[0], ref[0]
+    check(bool(torch.isfinite(ll_ref).all()), f"{name}: the plain version is not finite")
+    max_abs = float((ll - ll_ref).abs().max())
+    ok = bool(((ll - ll_ref).abs() <= 1e-10 * ll_ref.abs()).all())
+    worst = 0.0
+    for g, g_ref in zip(out[1], ref[1]):
+        if g_ref.numel():
+            rel = float((g - g_ref).abs().max() / g_ref.abs().max().clamp_min(1e-300))
+            worst = max(worst, rel)
+    again = celerite_log_likelihood_and_grad(**a)
+    same = torch.equal(again[0], out[0]) and all(torch.equal(u, v) for u, v in zip(again[1], out[1]))
+    check(same, f"{name}: a second launch on the same inputs gave other bits")
+    fwd = celerite_log_likelihood(a["coeffs"], a["t"], a["y"], a["diag"], mean=a.get("mean"),
+                                  extra_diag=a["extra_diag"])
+    fwd_rel = float(((ll - fwd).abs() / fwd.abs()).max())
+    check(fwd_rel <= 1e-12, f"{name}: the value differs from the forward kernel's by {fwd_rel:.3e} (rtol 1e-12)")
+    ms = cuda_ms(lambda: celerite_log_likelihood_and_grad(**a), reps=10)
+    c = a["coeffs"]
+    case = dict(name=name, max_abs_err=max_abs, grad_rel_err=worst, ms=ms, plain_ms=plain_ms, B=c.ar.shape[0],
+                N=a["t"].shape[0], jr=c.ar.shape[1], jc=c.ac.shape[1], y_numel=a["y"].numel())
+    case["bound_ms"], case["bound_by"] = grad_bound(case)
+    print(f"[kernel] celerite_grad {name}: value max_abs_err={max_abs:.3e} (rtol 1e-10), gradients "
+          f"{worst:.3e} of their largest (1e-8), repeat launch bit-identical, value against the forward "
+          f"kernel {fwd_rel:.3e} (rtol 1e-12), kernel {ms:.3f} ms{before_note(name)}, plain {plain_ms:.1f} ms, "
+          f"bound {case['bound_ms']:.5f} ms ({case['bound_by']}) [{card}]", flush=True)
+    check(ok and worst <= 1e-8, f"{name}: the gradient kernel disagrees with its plain version")
+    return case
+
+
 def grad_cases(card):
     """Phase 3, the MAP fit's kernel: value and gradients against the plain
     version (autograd through solver/semiseparable.py, on the card) at
@@ -243,9 +305,8 @@ def grad_cases(card):
     import numpy as np
     import torch
 
-    from mind_the_gaps_tpu_torch.kernels import DampedRandomWalk, Lorentzian, RealTerm
+    from mind_the_gaps_tpu_torch.kernels import Lorentzian, RealTerm
     from mind_the_gaps_tpu_torch.models.mean_models import LinearModel
-    from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood
     from mind_the_gaps_tpu_torch.ops.celerite_grad import (
         celerite_log_likelihood_and_grad,
         celerite_log_likelihood_and_grad_plain,
@@ -260,7 +321,6 @@ def grad_cases(card):
     drw3l = alt + Lorentzian(-0.8, 1.5, -1.6) + Lorentzian(-0.6, 1.0, -1.2)  # R = 7
     wide10 = drw3l + RealTerm(-0.5, -2.0) + Lorentzian(-1.2, 1.2, -1.0)  # R = 10: runtime-R body
     wide16 = wide10 + Lorentzian(-1.4, 1.1, -0.8) + Lorentzian(-1.6, 0.9, -0.6) + Lorentzian(-1.8, 0.8, -0.4)
-    n = t.shape[0]
 
     def args(kernel, B=1, per_element_mean=False):
         th = kernel.get_parameter_vector() + 0.05 * rng.normal(size=(B, kernel.ndim))
@@ -281,43 +341,7 @@ def grad_cases(card):
         ("R=16 runtime-R body, buffers in global scratch: B=1 N=5000", args(wide16)),
         ("linear mean, per-element residuals: B=2 N=5000 R=3", args(alt, B=2, per_element_mean=True)),
     ]
-    results = []
-    for name, a in cases:
-        out = celerite_log_likelihood_and_grad(**a)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        ref = celerite_log_likelihood_and_grad_plain(**a)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
-        ll, ll_ref = out[0], ref[0]
-        check(bool(torch.isfinite(ll_ref).all()), f"{name}: the plain version is not finite")
-        max_abs = float((ll - ll_ref).abs().max())
-        ok = bool(((ll - ll_ref).abs() <= 1e-10 * ll_ref.abs()).all())
-        worst = 0.0
-        for g, g_ref in zip(out[1], ref[1]):
-            if g_ref.numel():
-                rel = float((g - g_ref).abs().max() / g_ref.abs().max().clamp_min(1e-300))
-                worst = max(worst, rel)
-        again = celerite_log_likelihood_and_grad(**a)
-        same = torch.equal(again[0], out[0]) and all(torch.equal(u, v) for u, v in zip(again[1], out[1]))
-        check(same, f"{name}: a second launch on the same inputs gave other bits")
-        fwd = celerite_log_likelihood(a["coeffs"], a["t"], a["y"], a["diag"], mean=a.get("mean"),
-                                      extra_diag=a["extra_diag"])
-        fwd_rel = float(((ll - fwd).abs() / fwd.abs()).max())
-        check(fwd_rel <= 1e-12, f"{name}: the value differs from the forward kernel's by {fwd_rel:.3e} (rtol 1e-12)")
-        ms = cuda_ms(lambda: celerite_log_likelihood_and_grad(**a), reps=10)
-        c = a["coeffs"]
-        case = dict(name=name, max_abs_err=max_abs, grad_rel_err=worst, ms=ms, plain_ms=plain_ms, B=c.ar.shape[0],
-                    N=n, jr=c.ar.shape[1], jc=c.ac.shape[1], y_numel=a["y"].numel())
-        case["bound_ms"], case["bound_by"] = grad_bound(case)
-        print(f"[kernel] celerite_grad {name}: value max_abs_err={max_abs:.3e} (rtol 1e-10), gradients "
-              f"{worst:.3e} of their largest (1e-8), repeat launch bit-identical, value against the forward "
-              f"kernel {fwd_rel:.3e} (rtol 1e-12), kernel {ms:.3f} ms{before_note(name)}, plain {plain_ms:.1f} ms, "
-              f"bound {case['bound_ms']:.5f} ms ({case['bound_by']}) [{card}]", flush=True)
-        check(ok and worst <= 1e-8, f"{name}: the gradient kernel disagrees with its plain version")
-        results.append(case)
+    results = [grad_case(card, name, a) for name, a in cases]
 
     a = args(alt, B=3)  # the middle draw's DRW amplitude negative: K not positive definite
     a["coeffs"] = a["coeffs"]._replace(ar=a["coeffs"].ar * torch.tensor([[1.0], [-1.0], [1.0]], device=dev))
@@ -857,6 +881,180 @@ def e13_generation_rate(card, dev, n_points=500, B=256):
           f"max {int(iters.max())}, remap launches {rank_remap.launches - launches} [{card}]", flush=True)
 
 
+def tutorial_candidates():
+    """The model-selection tutorial's four candidates and bounds
+    (examples/tutorial_model_selection.py:33-38), in the port."""
+    from mind_the_gaps_tpu_torch.kernels import DampedRandomWalk, Lorentzian, Matern32Term, SHOTerm
+
+    return {
+        "DRW": DampedRandomWalk(0.0, -2.0, bounds=[(-5, 8), (-8, 2)]),
+        "SHO": SHOTerm(0.0, 0.0, -2.0, bounds=[(-5, 8), (-3, 5), (-8, 2)]),
+        "Matern32": Matern32Term(0.0, 2.0, bounds=[(-5, 8), (-2, 8)]),
+        "DRW+QPO": DampedRandomWalk(0.0, -2.0, bounds=[(-5, 8), (-8, 2)])
+        + Lorentzian(-1.0, 2.0, -2.0, bounds=[(-8, 5), (0, 6), (-5, 0)]),
+    }
+
+
+def selection_phase(card, lc, latency, reset_counts, read_counts):
+    """Phase 11, model selection: ``compare_models`` with the tutorial's four
+    candidates (R = 1, 4, 2, 3) on phase 4's N=5000 data, walkers=24,
+    max_steps=4000, seed=0, on the card.  Each candidate's
+    ``max_loglikelihood`` against the plain float64 likelihood on the CPU at
+    its ``max_parameters`` (rtol 1e-10), its AICc finite, the Akaike weights
+    summing to 1 (1e-12); then the gradient kernel against its plain version
+    at the R = 2 and R = 4 MAP-fit shapes (B=1, N=5000, at those candidates'
+    ``max_parameters``), beside its latency floor.  Returns (the launch
+    counts of ``compare_models``, the two gradient cases)."""
+    import numpy as np
+    import torch
+
+    from mind_the_gaps_tpu_torch.gpmodelling import GPModelling
+    from mind_the_gaps_tpu_torch.selection import compare_models
+
+    dev = torch.device("cuda")
+    kernels = tutorial_candidates()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = compare_models(lc, kernels, max_steps=4000, walkers=24, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = read_counts()
+    total = sum(r.akaike_weight for r in results)
+    print(f"[select] compare_models, 4 candidates x 24 walkers, max_steps 4000: {sec:.3f} s, launches = {counts}, "
+          f"Akaike weights sum to 1 {total - 1.0:+.3e} [{card}]", flush=True)
+    widths = {}
+    for r in results:
+        gp = r.model
+        c = gp.kernel.coefficients()
+        widths[r.name] = (c.ar.shape[-1], c.ac.shape[-1])
+        theta = torch.as_tensor(np.asarray(r.model.max_parameters, dtype=np.float64))
+        ll_cpu = float(GPModelling(lc, kernels[r.name], device="cpu").log_prob_batch(theta[None])[0])
+        rel = abs(r.max_loglikelihood - ll_cpu) / abs(ll_cpu)
+        tm = gp.timings
+        print(f"[select] {r.name} (R={widths[r.name][0] + 2 * widths[r.name][1]}, k={r.k}): max loglike "
+              f"{r.max_loglikelihood!r}, CPU plain at max_parameters {ll_cpu!r} (rtol {rel:.3e}, 1e-10), AICc "
+              f"{r.aicc:.6f}, dAICc {r.delta_aicc:.6f}, weight {r.akaike_weight:.6e}, KS p {r.ks_pvalue:.4f}; "
+              f"{gp.sampler.iteration} steps (converged {gp.converged}), MAP fit {tm['map_fit_s']:.3f} s in "
+              f"{tm['map_fit_evals']} evaluations ({tm['map_fit_launches']} celerite_grad launches), sampling "
+              f"{tm['sampling_s']:.3f} s ({tm['sampling_launches']} celerite launches) [{card}]", flush=True)
+        check(rel <= 1e-10, f"{r.name}: max_loglikelihood differs from the CPU's plain likelihood by rtol {rel:.3e}")
+        check(math.isfinite(r.aicc), f"{r.name}: AICc not finite")
+        check(tm["map_fit_launches"] == tm["map_fit_evals"] > 0 and tm["sampling_launches"] > 0,
+              f"{r.name}: the MAP fit or the sampler did not go through the kernels")
+    check(abs(total - 1.0) <= 1e-12, f"the Akaike weights sum to {total!r}")
+    check(sorted(R for R in (jr + 2 * jc for jr, jc in widths.values())) == [1, 2, 3, 4],
+          f"the candidates' widths are {widths}, not R = 1, 2, 3, 4")
+    check(counts["celerite_warp"] == sum(r.model.timings["sampling_launches"] for r in results)
+          and counts["celerite_grad"] == sum(r.model.timings["map_fit_launches"] for r in results),
+          "compare_models launched kernels that its models did not count")
+
+    t = torch.as_tensor(lc.times, device=dev)
+    y = torch.as_tensor(lc.y, dtype=torch.float64, device=dev)
+    diag = torch.as_tensor((lc.dy + 1e-12) ** 2, dtype=torch.float64, device=dev)
+    cases = []
+    for name in ("Matern32", "SHO"):
+        r = next(r for r in results if r.name == name)
+        th = torch.as_tensor(np.asarray(r.model.max_parameters, dtype=np.float64)[None], device=dev)
+        a = dict(coeffs=r.model.kernel.coefficients(th), t=t, y=y, diag=diag, extra_diag=r.model.kernel.jitter(th),
+                 mean=torch.full((1,), float(lc.mean), dtype=torch.float64, device=dev))
+        jr, jc = widths[name]
+        case = grad_case(card, f"{name} MAP-fit shape: B=1 N=5000 R={jr + 2 * jc}", a)
+        case["floor_ms"] = latency_floor_ms(case, latency["float64"], 2)
+        print(f"[floor] celerite_grad {case['name']}: latency floor {case['floor_ms']:.4f} ms (chain depth "
+              f"{chain_depth(jr, jc)}), kernel {case['ms']:.3f} ms = {case['ms'] / case['floor_ms']:.2f}x the floor "
+              f"[{card}]", flush=True)
+        cases.append(case)
+    return counts, cases
+
+
+def fit_device_phase(card, lc, null, alt):
+    """Phase 11, ``fit_device`` (torch.optim.LBFGS on the card) against
+    ``fit()`` (scipy's L-BFGS-B on the host, objective on the card) for phase
+    4's null and alternative: nll within 1e-3, the JAX package's contract;
+    both one gradient-kernel launch an evaluation; the null fitted twice,
+    the second time with the same bits."""
+    import numpy as np
+    import torch
+
+    from mind_the_gaps_tpu_torch.gpmodelling import GPModelling
+
+    for name, kernel in (("null", null), ("alt", alt)):
+        host, dev = GPModelling(lc, kernel, device="cuda"), GPModelling(lc, kernel, device="cuda")
+        t0 = time.perf_counter()
+        sol = host.fit()
+        t_fit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params, nll = dev.fit_device()
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        d = abs(nll - sol.fun)
+        print(f"[fit_device] {name}: fit_device nll {nll!r} in {t_dev:.3f} s, {dev.timings['map_fit_evals']} "
+              f"evaluations ({dev.timings['map_fit_launches']} launches), params {params}; fit() nll {sol.fun!r} in "
+              f"{t_fit:.3f} s, {host.timings['map_fit_evals']} evaluations, params {sol.x}; |d nll| {d:.3e} (1e-3) "
+              f"[{card}]", flush=True)
+        check(d < 1e-3, f"fit_device's {name} nll is {d:.3e} from fit()'s")
+        check(dev.timings["map_fit_launches"] == dev.timings["map_fit_evals"] > 0,
+              "fit_device did not evaluate through the gradient kernel")
+        if name == "null":  # the process's first optimizer step pays a one-time set-up: time a second fit
+            t0 = time.perf_counter()
+            again = GPModelling(lc, kernel, device="cuda").fit_device()
+            torch.cuda.synchronize()
+            print(f"[fit_device] null again: {time.perf_counter() - t0:.3f} s, nll {again[1]!r} [{card}]", flush=True)
+            check(again[1] == nll and np.array_equal(again[0], params), "a second fit_device gave other bits")
+
+
+def periodogram_phase(card, lc):
+    """Phase 11, the Lomb-Scargle periodogram on the card at phase 4's
+    N=5000 over ``autofrequency``'s grid (F = 62,500), with dy: every
+    normalization within 1e-9 x max(power) of the same function on CPU
+    tensors, its time from CUDA events and its peak memory; the 1%
+    false-alarm level from the card's tensors equal to the CPU's."""
+    import numpy as np
+    import torch
+
+    from mind_the_gaps_tpu_torch.periodogram import (
+        NORMALIZATIONS,
+        autofrequency,
+        default_chunk,
+        lomb_scargle,
+        ls_false_alarm_level,
+    )
+
+    dev = torch.device("cuda")
+    freqs = autofrequency(lc.times)
+    n = lc.n
+    check(freqs.size == 62_500, f"autofrequency gives {freqs.size} frequencies, not 62,500")
+    card_in = [torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev) for a in (lc.times, lc.y, freqs, lc.dy)]
+    cpu_in = [a.cpu() for a in card_in]
+    standard = None
+    for norm in NORMALIZATIONS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        power = lomb_scargle(*card_in[:3], dy=card_in[3], normalization=norm)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = cuda_ms(lambda: lomb_scargle(*card_in[:3], dy=card_in[3], normalization=norm), reps=3)
+        t0 = time.perf_counter()
+        ref = lomb_scargle(*cpu_in[:3], dy=cpu_in[3], normalization=norm)
+        cpu_s = time.perf_counter() - t0
+        err, scale = float((power.cpu() - ref).abs().max()), float(ref.abs().max())
+        print(f"[periodogram] {norm}: F={freqs.size} x N={n} f64 in chunks of {default_chunk(n)} frequencies, card "
+              f"{ms:.3f} ms, CPU {cpu_s:.3f} s; max abs diff {err:.3e} = {err / scale:.3e} of max(power) (1e-9); "
+              f"max_memory_allocated {peak / 2**20:.1f} MiB ({(peak - before) / 2**20:.1f} MiB above the inputs) "
+              f"[{card}]", flush=True)
+        check(bool(torch.isfinite(power).all()) and err <= 1e-9 * scale,
+              f"lomb_scargle ({norm}) on the card differs from the CPU's by {err / scale:.3e} of max(power)")
+        if norm == "standard":
+            standard = power
+    z_card = ls_false_alarm_level(0.01, n, card_in[2], card_in[0])
+    z_cpu = ls_false_alarm_level(0.01, n, freqs, lc.times)
+    above = int((standard > z_card).sum())
+    print(f"[periodogram] 1% false-alarm level {z_card!r} (CPU {z_cpu!r}); {above} frequencies above it, peak "
+          f"power {float(standard.max()):.6f} at {freqs[int(standard.argmax())]:.6e} [{card}]", flush=True)
+    check(z_card == z_cpu, "the false-alarm level from the card's tensors differs from the CPU's")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nsims", type=int, default=512)
@@ -1062,6 +1260,18 @@ def main(argv=None):
     check("jax" not in sys.modules, "the port imported jax")
     phase("CLI on a lightcurve file", t0)
 
+    # ---- 11. model selection and periodogram at full width ------------ #
+    t0 = time.perf_counter()
+    sel_counts, sel_grad = selection_phase(card, lc, latency, reset_counts, read_counts)
+    reset_counts()
+    fit_device_phase(card, lc, null, alt)
+    torch.cuda.synchronize()
+    fitdev_counts = read_counts()
+    print(f"[fit_device] launches = {fitdev_counts}", flush=True)
+    periodogram_phase(card, lc)
+    check("jax" not in sys.modules and "matplotlib" not in sys.modules, "the port imported jax or matplotlib")
+    phase("model selection and periodogram at full width", t0)
+
     # ---- summary ------------------------------------------------------ #
     def row(name, route, source, replaces, launches, case, library_ms):
         return {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches,
@@ -1071,7 +1281,7 @@ def main(argv=None):
     def named(cases, prefix):
         return next(c for c in cases if c["name"].startswith(prefix))
 
-    paths = (gauss, logn, mean_counts, chain_counts, *cli_counts)
+    paths = (gauss, logn, mean_counts, chain_counts, *cli_counts, sel_counts, fitdev_counts)
 
     def launches(key):
         return sum(p[key] for p in paths)
@@ -1084,8 +1294,9 @@ def main(argv=None):
     srt = named(srt_cases, "sort_kv (128, 65536) f64")
     for c in (grad_alt, obs, cel, dense, remap, srt):
         print(f"[summary] times of the entry: {c['name']}{before_note(c['name'])}", flush=True)
-    print("[summary] launches are the sums over the Gaussian, lognormal, fitted-mean, chains=4 and CLI (fit, "
-          "simulate, lrt) paths; the probe's are those of its own entry point (fma_probe.probe) "
+    print("[summary] launches are the sums over the Gaussian, lognormal, fitted-mean, chains=4, CLI (fit, "
+          "simulate, lrt), model-selection and fit_device paths; the probe's are those of its own entry point "
+          "(fma_probe.probe) "
           "(the celerite entries: its launches with a warp and with 8 lanes per likelihood); the sorts' plain "
           "versions are the library calls (stable torch.sort / argsort with a gather / scatter); the "
           "gradient kernel's plain version is autograd through solver/semiseparable.py on the card", flush=True)
@@ -1093,6 +1304,9 @@ def main(argv=None):
           f"{remap['plain_ms']:.3f} ms: {'met' if remap['ms'] <= remap['plain_ms'] else 'NOT met'}", flush=True)
     print(f"[goal] celerite observed-fit shape: {obs['ms']:.3f} ms against 1.2 ms: "
           f"{'met' if obs['ms'] <= 1.2 else 'NOT met'}", flush=True)
+    for c in sel_grad:
+        print(f"[summary] celerite_grad {c['name']}: {c['ms']:.3f} ms, {c['ms'] / c['floor_ms']:.2f}x its latency "
+              f"floor [{card}]", flush=True)
     for prefix in ("MAP fit null", "MAP fit alt"):
         c = named(grad, prefix)
         ratio = c["ms"] / c["floor_ms"]

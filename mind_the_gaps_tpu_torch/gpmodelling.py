@@ -250,19 +250,30 @@ class GPModelling:
             self.mean_model.get_parameter_vector(), dtype=theta.dtype, device=theta.device
         )
 
-    def _loglike_and_grad(self, x):
-        """(log-likelihood, its gradient) at one parameter vector ``x``, as
-        float64 numpy: the coefficients, jitter and mean curve by torch ops
-        on the device, then ``celerite_loglike_fn`` (one kernel launch on a
-        CUDA device) and autograd back to theta; one copy to the host."""
-        theta = torch.tensor(np.asarray(x, dtype=np.float64), device=self.device, requires_grad=True)
+    def _map_loglike(self, theta):
+        """The MAP objective's log-likelihood (0-d) at a float64 parameter
+        tensor (D,) on the device, for autograd: the coefficients, jitter and
+        mean curve by torch ops, then ``celerite_loglike_fn`` (one kernel
+        launch on a CUDA device)."""
         th_k = theta[None, : self._nk]
         y, diag = self._series(torch.float64)
-        ll = celerite_loglike_fn(self.kernel.coefficients(th_k), self._t, y - self._mean_curve(theta, self._t), diag,
-                                 extra_diag=self.kernel.jitter(th_k))[0]
+        return celerite_loglike_fn(self.kernel.coefficients(th_k), self._t, y - self._mean_curve(theta, self._t), diag,
+                                   extra_diag=self.kernel.jitter(th_k))[0]
+
+    def _loglike_and_grad(self, x):
+        """(log-likelihood, its gradient) at one parameter vector ``x``, as
+        float64 numpy, by ``_map_loglike`` and autograd back to theta; one
+        copy to the host."""
+        theta = torch.tensor(np.asarray(x, dtype=np.float64), device=self.device, requires_grad=True)
+        ll = self._map_loglike(theta)
         ll.backward()
         out = torch.cat([ll.detach()[None], theta.grad]).cpu().numpy()
         return float(out[0]), out[1:]
+
+    def _box(self):
+        """(lower, upper) parameter bounds as float64 numpy (+-inf where unbounded)."""
+        box = np.array(self.get_parameter_bounds(), dtype=np.float64).reshape(-1, 2)
+        return box[:, 0], box[:, 1]
 
     def fit(self, initial_params=None):
         """MAP fit with L-BFGS-B under the parameter bounds, with exact
@@ -282,15 +293,77 @@ class GPModelling:
                 return 1e25, np.zeros_like(np.asarray(x, dtype=float))
             return -ll, np.where(np.isfinite(g), -g, 0.0)
 
-        bounds = [
-            (None if not np.isfinite(lo) else lo, None if not np.isfinite(hi) else hi)
-            for lo, hi in ((float(b[0]), float(b[1])) for b in self.get_parameter_bounds())
-        ]
+        bounds = [(lo if np.isfinite(lo) else None, hi if np.isfinite(hi) else None) for lo, hi in zip(*self._box())]
         out = minimize(fun, np.asarray(initial_params, dtype=float), jac=True, method="L-BFGS-B", bounds=bounds)
+        self._count_map_evals(evals, launches)
+        return out
+
+    def _count_map_evals(self, evals, launches_before):
         self.timings["map_fit_evals"] = self.timings.get("map_fit_evals", 0) + evals
         self.timings["map_fit_launches"] = (self.timings.get("map_fit_launches", 0)
-                                            + celerite_log_likelihood_and_grad.launches - launches)
-        return out
+                                            + celerite_log_likelihood_and_grad.launches - launches_before)
+
+    def fit_device(self, initial_params=None, max_iters: int = 200, tol: float = 1e-10):
+        """MAP fit with the optimizer on the model's device as well:
+        ``torch.optim.LBFGS`` with a strong-Wolfe line search over ``fit()``'s
+        objective (on a card one gradient-kernel launch an evaluation), one
+        iteration a ``step()``.  After each step the iterate is projected into
+        the parameter box; the fit stops after ``max_iters`` iterations or
+        once an iteration moves no parameter by more than ``tol`` (an
+        iteration that LBFGS ends without a move, at a vanishing gradient or
+        directional derivative, is such a one).
+
+        On a face of the box, a gradient component that points out of the box
+        is zeroed, and the optimizer's history restarts whenever the set of
+        parameters on a face changes, so that L-BFGS works in the free
+        parameters only (the JAX package's ``fit_device`` only clips: its
+        curvature pairs then hold the steps before the projection, and it
+        stalls on a face).  A non-finite log-likelihood gives 1e25 and a zero
+        gradient, as in the JAX package.  The evaluations are counted as
+        ``fit()`` counts them.  Returns (params (ndim,) numpy, nll float)."""
+        if initial_params is None:
+            initial_params = self.initial_params
+        lo_np, hi_np = self._box()
+        lo, hi = (torch.as_tensor(b, device=self.device) for b in (lo_np, hi_np))
+        theta0 = np.clip(np.asarray(initial_params, dtype=np.float64), lo_np, hi_np)
+        theta = torch.tensor(theta0, device=self.device, requires_grad=True)
+        evals, launches = 0, celerite_log_likelihood_and_grad.launches
+
+        def closure():
+            nonlocal evals
+            evals += 1
+            theta.grad = None
+            ll = self._map_loglike(theta)
+            ok = torch.isfinite(ll)
+            nll = torch.where(ok, -ll, ll.new_full((), 1e25))
+            nll.backward()
+            g = theta.grad
+            outward = ((theta == lo) & (g > 0)) | ((theta == hi) & (g < 0))
+            theta.grad = torch.where(ok & torch.isfinite(g) & ~outward, g, 0.0)
+            return nll
+
+        def optimizer():  # max_eval bounds the line search of one step at LBFGS's default 25
+            return torch.optim.LBFGS([theta], lr=1.0, max_iter=1, max_eval=26, line_search_fn="strong_wolfe")
+
+        opt = optimizer()
+        on_face = (theta == lo) | (theta == hi)
+        for _ in range(max_iters):
+            before = theta.detach().clone()
+            opt.step(closure)
+            with torch.no_grad():
+                theta.copy_(torch.clamp(theta, lo, hi))
+                delta = float((theta - before).abs().max())
+                faces = (theta == lo) | (theta == hi)
+            if not delta > tol:
+                break
+            if not torch.equal(faces, on_face):
+                opt, on_face = optimizer(), faces
+        with torch.no_grad():
+            ll = self._map_loglike(theta)
+        evals += 1
+        self._count_map_evals(evals, launches)
+        nll = -float(ll)
+        return theta.detach().cpu().numpy(), nll if np.isfinite(nll) else 1e25
 
     # ------------------------------------------------------------------ #
     def spread_walkers(self, walkers, parameters, bounds, percent=0.1, max_attempts=20, rng=None):
@@ -380,6 +453,9 @@ class GPModelling:
         and |dtau|/tau < 1%; then discard/thin by 40 tau (10 tau if over
         budget) / tau/2, or 5 tau / tau/4 when unconverged.
 
+        ``timings`` holds the seconds of the MAP fit and of the sampling, and
+        the celerite kernel's launches of the sampling (``"sampling_launches"``).
+
         ``fast``: explore in float32 and recompute the reported
         log-probabilities of the kept samples in float64, both through the
         same op (default False: the chain runs in float64).  ``seed`` seeds
@@ -407,7 +483,7 @@ class GPModelling:
             if chains > 1:
                 initial_chain_params = initial_chain_params.reshape(chains, walkers, -1)
         self.timings["map_fit_s"] = time.perf_counter() - t_start
-        t_start = time.perf_counter()
+        t_start, launches = time.perf_counter(), celerite_log_likelihood.launches
         initial_chain_params = np.asarray(initial_chain_params, dtype=float)
         if chains > 1 and (initial_chain_params.ndim != 3 or initial_chain_params.shape[0] != chains):
             raise ValueError("with chains > 1, initial_chain_params must have shape (chains, walkers, ndim)")
@@ -472,6 +548,7 @@ class GPModelling:
             ).cpu().numpy()
         self._sampler = sampler
         self.timings["sampling_s"] = time.perf_counter() - t_start
+        self.timings["sampling_launches"] = celerite_log_likelihood.launches - launches
 
     # ------------------------------------------------------------------ #
     def _model_at(self, parameters):

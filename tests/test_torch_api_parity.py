@@ -1,8 +1,9 @@
 """Public-API parity of the port: every name that tests/test_api_parity.py
 locks for the JAX package exists at the same path in
-``mind_the_gaps_tpu_torch``, with the modules the port has not written yet
-named in one set, and the numeric ones among the names added to the port
-late agree with their JAX functions on the CPU:
+``mind_the_gaps_tpu_torch`` (every module of that list is ported, so the
+set of modules not yet ported is empty), as do the names of the modules
+and members the port added later, and the numeric ones among the names
+added to the port late agree with their JAX functions on the CPU:
 
 - ``stats.neg_log_like``: rtol 1e-10;
 - ``sampler.autocorr.autocorr_function``: within 1e-12 of the largest
@@ -44,12 +45,23 @@ PORT_EXTRA_API = {
                                            "integrated_autocorr_time", "integrated_autocorr_time_masked"],
     "mind_the_gaps_tpu.solver": ["dense_log_likelihood", "dense_covariance", "CeleriteMatrices", "build_matrices",
                                  "factor", "log_likelihood", "solve", "predict_mean", "predict", "predict_at",
-                                 "inverse_diag"],
+                                 "inverse_diag", "kalman_log_likelihood", "parallel_kalman_log_likelihood"],
     "mind_the_gaps_tpu.solver.batched": ["batched_log_likelihood", "batched_log_prob_fn"],
+    "mind_the_gaps_tpu.selection": ["ModelComparison", "compare_models"],
+    "mind_the_gaps_tpu.periodogram": ["lomb_scargle", "autofrequency", "ls_false_alarm_level"],
+    "mind_the_gaps_tpu.plotting": ["plot_lightcurve", "plot_gp_prediction", "plot_posteriors",
+                                   "plot_t_distribution", "plot_standardized_residuals"],
+    "mind_the_gaps_tpu.solver.kalman": ["state_space_matrices", "kalman_log_likelihood",
+                                        "parallel_kalman_log_likelihood"],
 }
 
-# modules of the JAX package the port has not written yet (ROADMAP queue 1)
-NOT_YET_PORTED = {"fitting", "utils", "selection", "periodogram", "plotting"}
+# class members the port added after the JAX package's list was taken
+PORT_EXTRA_METHODS = {
+    ("mind_the_gaps_tpu.gpmodelling", "GPModelling"): ["fit_device", "loo_residuals", "predict"],
+}
+
+# modules of the JAX package the port has not written yet: none
+NOT_YET_PORTED = set()
 
 
 def _port(module):
@@ -78,12 +90,22 @@ def test_port_class_members_exist(target, members):
     assert not missing, f"{cls_name} missing members: {missing}"
 
 
-@pytest.mark.parametrize("name", sorted(NOT_YET_PORTED))
-def test_not_yet_ported_is_absent(name):
-    """Porting one of these modules must take it out of NOT_YET_PORTED, so
-    that its names are checked."""
-    importlib.import_module(f"{JAX}.{name}")
-    assert importlib.util.find_spec(f"{PORT}.{name}") is None
+@pytest.mark.parametrize("target,members", sorted(PORT_EXTRA_METHODS.items()))
+def test_port_extra_class_members_exist(target, members):
+    module, cls_name = target
+    for pkg_module in (module, _port(module)):
+        cls = getattr(importlib.import_module(pkg_module), cls_name)
+        missing = [m for m in members if not hasattr(cls, m)]
+        assert not missing, f"{pkg_module}.{cls_name} missing members: {missing}"
+
+
+def test_extra_names_are_the_jax_modules_all():
+    """The later modules' lists are their JAX modules' ``__all__``, and the
+    port's modules export the same."""
+    for module in ("selection", "periodogram", "plotting", "solver.kalman"):
+        names = PORT_EXTRA_API[f"{JAX}.{module}"]
+        assert sorted(names) == sorted(importlib.import_module(f"{JAX}.{module}").__all__)
+        assert sorted(names) == sorted(importlib.import_module(f"{PORT}.{module}").__all__)
 
 
 def _kernels():

@@ -277,14 +277,16 @@ def test_entry_points_default_to_cuda():
                   "gpmodelling.GPModelling.__init__", "simulator.core.E13Simulator.__init__",
                   "simulator.core.Simulator.__init__", "simulator.noise.KraftNoise.__init__",
                   "simulator.noise.PoissonNoise.__init__", "simulator.noise.kraft_tables",
-                  "ops.fma_probe.probe", "stats.kraft_posterior_median", "stats.kraft_hpd_interval"):
+                  "ops.fma_probe.probe", "stats.kraft_posterior_median", "stats.kraft_hpd_interval",
+                  "periodogram.lomb_scargle", "selection.compare_models"):
         assert f"mind_the_gaps_tpu_torch.{entry}" in found, entry
     for entry in ("ops.celerite_grad.celerite_loglike_fn", "ops.celerite_grad.celerite_log_likelihood_and_grad",
                   "sampler.ensemble.sample_ensemble_grouped", "sampler.ensemble.max_loglike_ensemble_impl",
                   "solver.semiseparable.predict_at", "solver.semiseparable.inverse_diag",
                   "models.psd_models.BrokenPowerLaw.__call__", "gpmodelling.GPModelling.predict",
                   "gpmodelling.GPModelling.loo_residuals", "gpmodelling.GPModelling.get_rstat",
-                  "gpmodelling.ChainResult.get_autocorr_time"):
+                  "gpmodelling.ChainResult.get_autocorr_time", "gpmodelling.GPModelling.fit_device",
+                  "solver.kalman.parallel_kalman_log_likelihood"):
         assert f"mind_the_gaps_tpu_torch.{entry}" in seen, entry
         assert f"mind_the_gaps_tpu_torch.{entry}" not in found, entry
     assert all(default == "cuda" for default in found.values()), found
