@@ -69,7 +69,16 @@ Phases, each printed with its seconds:
    against ``fit()`` for phase 4's null and alternative (nll within 1e-3);
    ``periodogram.lomb_scargle`` over ``autofrequency``'s 62,500 frequencies
    with dy, each normalization within 1e-9 x max(power) of the CPU's, with
-   its time and peak memory, and the 1% false-alarm level.
+   its time and peak memory, and the 1% false-alarm level;
+12. the mesh: over every visible card when there are two or more, else two
+   shards on this card, the refits of a 513-row chunk of phase 4 (512
+   simulations from its null posterior + the observed row, 12 walkers, 500
+   steps, float32, the DRW+QPO alternative) by ``batched_max_loglike``
+   unsharded, "gspmd" and "shard_map" (gspmd equal to unsharded by
+   ``torch.equal``; each shard_map shard equal to the unsharded run of its
+   rows with its own generator), their seconds and each shard's launches;
+   then a 200-step ``derive_posteriors(mesh=)`` of the alternative at 32
+   walkers, equal to the unsharded chain bit for bit.
 
 Phase 3 also holds the latency probe ``ops/fma_probe.py`` (``csrc/fma_chain.cu``,
 dependent multiply-add chains) against its plain version in float32 and
@@ -90,6 +99,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1055,6 +1065,110 @@ def periodogram_phase(card, lc):
     check(z_card == z_cpu, "the false-alarm level from the card's tensors differs from the CPU's")
 
 
+def mesh_phase(card, lc, null, alt, res):
+    """Phase 12, the mesh: the refits of phase 4's chunk shape (512
+    simulations from phase 4's null posterior + the observed row, 12
+    walkers, 500 steps, float32, (0.01, 50) early stop, the DRW+QPO
+    alternative) by ``batched_max_loglike`` unsharded, "gspmd" and
+    "shard_map" over the mesh of the visible cards (two shards on this card
+    when it is the only one), host-clocked around synchronised calls in
+    turns; the gspmd result must equal the unsharded one (``torch.equal``),
+    each shard_map shard its own unsharded run; then a 200-step
+    ``derive_posteriors`` of the alternative at 32 walkers over the mesh
+    must equal the unsharded chain bit for bit."""
+    import numpy as np
+    import torch
+
+    from mind_the_gaps_tpu_torch.gpmodelling import GPModelling
+    from mind_the_gaps_tpu_torch.lrt import _alt_theta0_rows, _derived_generator, batched_max_loglike
+    from mind_the_gaps_tpu_torch.ops.celerite import batch_team
+    from mind_the_gaps_tpu_torch.parallel import Mesh, default_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n_cards = torch.cuda.device_count()
+    mesh = default_mesh() if n_cards >= 2 else Mesh((dev, dev))
+    print(f"[mesh] torch.cuda.device_count() = {n_cards}; mesh of {mesh.size} shards on "
+          f"{[str(d) for d in mesh.devices]} ({'every visible card' if n_cards >= 2 else 'two shards on one card'})",
+          flush=True)
+
+    samples = torch.as_tensor(np.asarray(res.null_model.mcmc_samples, dtype=np.float64), device=dev)
+    idx = torch.randint(0, samples.shape[0], (513,), generator=torch.Generator(dev).manual_seed(1), device=dev)
+    params = samples[idx]
+    rates, dys = res.null_model.make_device_generator("Gaussian")(params[:512], _derived_generator(dev, 1, 0))
+    rates = torch.cat([rates, torch.as_tensor(lc.y, device=dev)[None]])
+    diags = (torch.cat([dys, torch.as_tensor(lc.dy, device=dev)[None]]) + 1e-12) ** 2
+    starts = _alt_theta0_rows(null, alt, params[:, : null.ndim].cpu().numpy())
+    t64 = torch.as_tensor(np.asarray(lc.times, dtype=np.float64), device=dev)
+
+    def sync():
+        for d in set(mesh.devices):
+            torch.cuda.synchronize(d)
+
+    def refit(rows, m, spmd, gen, device=dev):
+        sync()
+        c = time.perf_counter()
+        out = batched_max_loglike(alt, t64.to(device), rates[rows].to(device), diags[rows].to(device), starts[rows],
+                                  walkers=12, n_steps=500, dtype=torch.float32, early_stop=(0.01, 50), generator=gen,
+                                  mesh=m, spmd=spmd)
+        sync()
+        return out, time.perf_counter() - c, list(batched_max_loglike.shard_launches)
+
+    every = slice(None)
+    sm_gens = [_derived_generator(d, 0, 0, k) for k, d in enumerate(mesh.devices)]
+    runs = {}
+    for name in ("unsharded", "gspmd", "shard_map", "gspmd", "unsharded"):
+        m, spmd = (None, "gspmd") if name == "unsharded" else (mesh, name)
+        gen = sm_gens if name == "shard_map" else _derived_generator(dev, 0, 0, 1)
+        out, sec, launches = refit(every, m, spmd, gen)
+        runs.setdefault(name, []).append((out, sec, launches))
+        print(f"[mesh] batched_max_loglike {name}: {sec:.3f} s, launches a shard {launches} [{card}]", flush=True)
+    ref = runs["unsharded"][0][0]
+    check(torch.equal(runs["unsharded"][1][0][0], ref[0]), "two unsharded refits differ")
+    for (lp, x), _, _ in runs["gspmd"]:
+        check(torch.equal(lp, ref[0]) and torch.equal(x, ref[1]),
+              "the gspmd refits over the mesh differ from the unsharded refits")
+    (sm_lp, sm_x), _, sm_launches = runs["shard_map"][0]
+    check(bool(torch.isfinite(sm_lp).all()), "the shard_map refits are not finite")
+    for k, rows in enumerate(torch.tensor_split(torch.arange(513), mesh.size)):
+        r = slice(int(rows[0]), int(rows[-1]) + 1)
+        (lp, x), _, launches = refit(r, None, "gspmd", _derived_generator(mesh.devices[k], 0, 0, k), mesh.devices[k])
+        check(torch.equal(lp.to(dev), sm_lp[r]) and torch.equal(x.to(dev), sm_x[r]) and launches[0] == sm_launches[k],
+              f"shard_map shard {k} differs from the unsharded run of its rows with its generator")
+    med = {name: sorted(sec for _, sec, _ in v)[len(v) // 2] for name, v in runs.items()}
+    diff = (sm_lp.double() - ref[0].double()).abs()
+    print(f"[mesh] refits 513 x 12 walkers, N={lc.n}, float32, layout {batch_team(alt, 513 * 6, dev)} lanes: "
+          f"unsharded {[round(s, 3) for _, s, _ in runs['unsharded']]} s, gspmd "
+          f"{[round(s, 3) for _, s, _ in runs['gspmd']]} s ({med['gspmd'] / med['unsharded']:.3f}x), shard_map "
+          f"{runs['shard_map'][0][1]:.3f} s; gspmd equal to unsharded (torch.equal), each shard_map shard equal to "
+          f"its own run; |shard_map - gspmd| best loglike (other random streams): median "
+          f"{float(diff.median()):.4f}, max {float(diff.max()):.4f} [{card}]", flush=True)
+
+    init = GPModelling(lc, alt, device=dev).spread_walkers(
+        32, res.alt_model.max_parameters, np.array(alt.get_parameter_bounds(), dtype=object),
+        rng=np.random.default_rng(12))
+    chains = []
+    for m in (mesh, None):
+        gp = GPModelling(lc, alt, device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # a 200-step chain does not converge
+            gp.derive_posteriors(initial_chain_params=init, max_steps=200, convergence_steps=100, walkers=32,
+                                 seed=12, mesh=m)
+        sync()
+        chains.append(gp)
+        print(f"[mesh] derive_posteriors 32 walkers x 200 steps, {'mesh' if m else 'unsharded'}: sampling "
+              f"{gp.timings['sampling_s']:.3f} s, {gp.timings['mesh_shards']} shard(s), launches a shard "
+              f"{gp.timings['shard_launches']} [{card}]", flush=True)
+    a, b = chains
+    check(a.timings["mesh_shards"] == mesh.size and min(a.timings["shard_launches"]) > 0,
+          "a shard of the mesh-mode observed fit did not evaluate")
+    check(np.array_equal(a.sampler.get_chain(), b.sampler.get_chain())
+          and np.array_equal(a.sampler.get_log_prob(), b.sampler.get_log_prob())
+          and np.array_equal(a.mcmc_samples, b.mcmc_samples),
+          "the mesh-mode chain differs from the unsharded chain")
+    print("[mesh] the mesh-mode chain, log-probabilities and samples equal the unsharded run's bit for bit",
+          flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nsims", type=int, default=512)
@@ -1272,6 +1386,17 @@ def main(argv=None):
     check("jax" not in sys.modules and "matplotlib" not in sys.modules, "the port imported jax or matplotlib")
     phase("model selection and periodogram at full width", t0)
 
+    # ---- 12. the mesh ------------------------------------------------- #
+    t0 = time.perf_counter()
+    reset_counts()
+    mesh_phase(card, lc, null, alt, res)
+    torch.cuda.synchronize()
+    mesh_counts = read_counts()
+    print(f"[mesh] launches = {mesh_counts}", flush=True)
+    check(mesh_counts["celerite"] > 0, "the mesh phase never launched the celerite kernel")
+    check("jax" not in sys.modules, "the port imported jax")
+    phase("mesh", t0)
+
     # ---- summary ------------------------------------------------------ #
     def row(name, route, source, replaces, launches, case, library_ms):
         return {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches,
@@ -1281,7 +1406,7 @@ def main(argv=None):
     def named(cases, prefix):
         return next(c for c in cases if c["name"].startswith(prefix))
 
-    paths = (gauss, logn, mean_counts, chain_counts, *cli_counts, sel_counts, fitdev_counts)
+    paths = (gauss, logn, mean_counts, chain_counts, *cli_counts, sel_counts, fitdev_counts, mesh_counts)
 
     def launches(key):
         return sum(p[key] for p in paths)
@@ -1295,7 +1420,7 @@ def main(argv=None):
     for c in (grad_alt, obs, cel, dense, remap, srt):
         print(f"[summary] times of the entry: {c['name']}{before_note(c['name'])}", flush=True)
     print("[summary] launches are the sums over the Gaussian, lognormal, fitted-mean, chains=4, CLI (fit, "
-          "simulate, lrt), model-selection and fit_device paths; the probe's are those of its own entry point "
+          "simulate, lrt), model-selection, fit_device and mesh paths; the probe's are those of its own entry point "
           "(fma_probe.probe) "
           "(the celerite entries: its launches with a warp and with 8 lanes per likelihood); the sorts' plain "
           "versions are the library calls (stable torch.sort / argsort with a gather / scatter); the "

@@ -11,7 +11,8 @@ multiply-adds (``ops/fma_probe.py``); each is built with ``nvcc`` at its
 first use on a CUDA device, and on the CPU each op runs its plain PyTorch
 version.  ``python -m mind_the_gaps_tpu_torch.cli`` runs the fit /
 simulate / lrt workflows on lightcurve files, on the card unless given
-``--device cpu``.
+``--device cpu``.  ``parallel`` shards the bootstrap refits and the
+observed fits over the cards of a node, with results equal to one card's.
 
 The JAX package ``mind_the_gaps_tpu`` is the reference this port is
 tested against; this package never imports it.

@@ -39,7 +39,9 @@ from mind_the_gaps_tpu_torch.models.mean_models import (
     MeanModel,
 )
 from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood
+from mind_the_gaps_tpu_torch.ops.celerite import batch_team
 from mind_the_gaps_tpu_torch.ops.celerite_grad import celerite_log_likelihood_and_grad, celerite_loglike_fn
+from mind_the_gaps_tpu_torch.parallel import gather, shard_batch
 from mind_the_gaps_tpu_torch.sampler import (
     integrated_autocorr_time,
     integrated_autocorr_time_masked,
@@ -149,7 +151,7 @@ class GPModelling:
         self._y_cpu = torch.as_tensor(np.asarray(lightcurve.y, dtype=np.float64))
         self._diag_cpu = torch.as_tensor(diag)
         self._t = self._t_cpu.to(self.device)
-        self._data = {}  # dtype -> (y, diag) on the device
+        self._data = {}  # (dtype, device) -> (t, y, diag) on that device
 
         self._nk = kernel.ndim
         self._nm = self.mean_model.ndim if self.fit_mean else 0
@@ -404,34 +406,62 @@ class GPModelling:
 
     # ------------------------------------------------------------------ #
     def _series(self, dtype):
-        """(y, diag) on the device in ``dtype``, cast once."""
-        if dtype not in self._data:
-            self._data[dtype] = (
-                self._y_cpu.to(device=self.device, dtype=dtype),
-                self._diag_cpu.to(device=self.device, dtype=dtype),
-            )
-        return self._data[dtype]
+        """(y, diag) on the model's device in ``dtype``, cast once."""
+        return self._data_on(dtype, self.device)[1:]
 
-    def log_prob_batch(self, thetas):
-        """Log-posteriors (B,) of parameter draws (B, D) on the device, in
-        their dtype: flat priors within bounds plus the likelihood through
-        the celerite op.  An unfitted constant mean enters as the op's
-        per-element ``mean``; a fitted mean model as per-walker residual
-        series (B, N), formed in float64 and then cast."""
+    def _data_on(self, dtype, device):
+        """(t in float64, y, diag in ``dtype``) on ``device``, copied once."""
+        key = (dtype, torch.device(device))
+        if key not in self._data:
+            self._data[key] = (
+                self._t_cpu.to(device=device),
+                self._y_cpu.to(device=device, dtype=dtype),
+                self._diag_cpu.to(device=device, dtype=dtype),
+            )
+        return self._data[key]
+
+    def log_prob_batch(self, thetas, team=None):
+        """Log-posteriors (B,) of parameter draws (B, D) on their device (the
+        model's, or a mesh shard's), in their dtype: flat priors within
+        bounds plus the likelihood through the celerite op (``team``: its
+        layout).  An unfitted constant mean enters as the op's per-element
+        ``mean``; a fitted mean model as per-walker residual series (B, N),
+        formed in float64 and then cast."""
         th_k = thetas[:, : self._nk]
         coeffs = self.kernel.coefficients(th_k)
         lp = self.kernel.log_prior(th_k)
         jitter = self.kernel.jitter(th_k)
-        y, diag = self._series(thetas.dtype)
+        t, y, diag = self._data_on(thetas.dtype, thetas.device)
         if self.fit_mean:
             th_m = thetas[:, self._nk :]
             lp = lp + self.mean_model.log_prior(th_m)
-            resid = self._series(torch.float64)[0] - self.mean_model.value(self._t, th_m)
-            ll = celerite_log_likelihood(coeffs, self._t, resid.to(thetas.dtype), diag, extra_diag=jitter)
+            resid = self._data_on(torch.float64, thetas.device)[1] - self.mean_model.value(t, th_m)
+            ll = celerite_log_likelihood(coeffs, t, resid.to(thetas.dtype), diag, extra_diag=jitter, team=team)
         else:
             mean = thetas.new_full((thetas.shape[0],), float(self.mean_model.get_parameter_vector()[0]))
-            ll = celerite_log_likelihood(coeffs, self._t, y, diag, mean=mean, extra_diag=jitter)
+            ll = celerite_log_likelihood(coeffs, t, y, diag, mean=mean, extra_diag=jitter, team=team)
         return torch.where(torch.isfinite(lp), lp + ll, ll.new_full((), -math.inf))
+
+    def _sampler_log_prob(self, mesh, team, counts):
+        """The sampler's log-probability (B, D) -> (B,) on the model's device,
+        counting its celerite calls in ``counts``: without a mesh
+        ``log_prob_batch``; with one, the rows cut into ``mesh.size`` blocks
+        (``parallel.shard_batch``), each evaluated on its device with the
+        layout ``team``, all issued before the values are gathered back."""
+        if mesh is None:
+            def log_prob(thetas):
+                counts[0] += 1
+                return self.log_prob_batch(thetas)
+            return log_prob
+
+        def log_prob(thetas):
+            outs = []
+            for k, block in enumerate(shard_batch(thetas, mesh)):
+                if len(block):
+                    counts[k] += 1
+                    outs.append(self.log_prob_batch(block, team=team))
+            return gather(outs, thetas.device)
+        return log_prob
 
     def derive_posteriors(
         self,
@@ -453,8 +483,11 @@ class GPModelling:
         and |dtau|/tau < 1%; then discard/thin by 40 tau (10 tau if over
         budget) / tau/2, or 5 tau / tau/4 when unconverged.
 
-        ``timings`` holds the seconds of the MAP fit and of the sampling, and
-        the celerite kernel's launches of the sampling (``"sampling_launches"``).
+        ``timings`` holds the seconds of the MAP fit and of the sampling, the
+        celerite kernel's launches of the sampling (``"sampling_launches"``),
+        the shards of the sampler's evaluations (``"mesh_shards"``, 1 without
+        a mesh) and each shard's celerite calls (``"shard_launches"``, a list:
+        a kernel launch each on a card).
 
         ``fast``: explore in float32 and recompute the reported
         log-probabilities of the kept samples in float64, both through the
@@ -465,9 +498,17 @@ class GPModelling:
         ``walkers`` walkers each, run in lock-step (``sample_ensemble_grouped``:
         one likelihood launch a half-step for all of them); the chain is
         pooled as ``chains * walkers`` walkers.  ``initial_chain_params``
-        may be (chains, walkers, ndim).  ``mesh`` is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError("mesh mode is not ported yet (ROADMAP queue 1, item 11: multi-GPU)")
+        may be (chains, walkers, ndim).
+
+        ``mesh`` (``parallel.Mesh``): each half-step's log-probabilities are
+        evaluated over the mesh, the proposed rows cut into ``mesh.size``
+        blocks, each on its device with its own copy of the data and the
+        layout the whole half-step would get (``ops.celerite.batch_team``);
+        the proposals, the accept step and the autocorrelation stay on the
+        model's device.  The chain, its log-probabilities and the samples
+        equal the unsharded run's bit for bit.  Ignored, with a warning, when
+        the leading axis of the walkers (walkers, or chains with ``chains >
+        1``) does not divide into ``mesh.size`` shards."""
         if chains < 1:
             raise ValueError("chains must be >= 1")
         if seed is not None:
@@ -488,6 +529,16 @@ class GPModelling:
         if chains > 1 and (initial_chain_params.ndim != 3 or initial_chain_params.shape[0] != chains):
             raise ValueError("with chains > 1, initial_chain_params must have shape (chains, walkers, ndim)")
         pooled = int(np.prod(initial_chain_params.shape[:-1]))
+        if mesh is not None and initial_chain_params.shape[0] % mesh.size != 0:
+            warnings.warn(
+                "derive_posteriors mesh mode needs the leading chain axis "
+                f"({initial_chain_params.shape[0]}) to divide the device count "
+                f"({mesh.size}); running unsharded"
+            )
+            mesh = None
+        shard_calls = [0] * (1 if mesh is None else mesh.size)
+        team = None if mesh is None else batch_team(self.kernel, pooled // 2, self.device)
+        log_prob = self._sampler_log_prob(mesh, team, shard_calls)
 
         seg_dtype = torch.float32 if fast else torch.float64
         state = torch.as_tensor(initial_chain_params, dtype=seg_dtype, device=self.device)
@@ -502,7 +553,7 @@ class GPModelling:
         while iteration < max_steps:
             steps = min(convergence_steps, max_steps - iteration)
             sampler_fn = sample_ensemble_grouped if state.dim() == 3 else sample_ensemble_impl
-            chain, lps, acc, state = sampler_fn(self.log_prob_batch, state, steps, generator=self._generator)
+            chain, lps, acc, state = sampler_fn(log_prob, state, steps, generator=self._generator)
             chain_buf[iteration : iteration + steps] = chain.reshape(steps, pooled, self._ndim)
             lp_buf[iteration : iteration + steps] = lps.reshape(steps, pooled)
             iteration += steps
@@ -549,6 +600,8 @@ class GPModelling:
         self._sampler = sampler
         self.timings["sampling_s"] = time.perf_counter() - t_start
         self.timings["sampling_launches"] = celerite_log_likelihood.launches - launches
+        self.timings["mesh_shards"] = len(shard_calls)
+        self.timings["shard_launches"] = shard_calls
 
     # ------------------------------------------------------------------ #
     def _model_at(self, parameters):

@@ -10,6 +10,8 @@ PyTorch port of ``mind_the_gaps_tpu/lrt.py``:
 3. refit both models to every simulated lightcurve with short stretch-move
    chains, all (simulation x walker) chains of a chunk in lock-step, each
    half-ensemble update one batched likelihood launch (grouped layout);
+   over a mesh (``parallel``) a chunk's rows are cut into blocks, one a
+   card, and each card launches its own;
 4. re-evaluate the refit optima in float64 (per-element layout);
 5. T = -2 (logL_null - logL_alt); the p-value is the tail fraction of the
    simulated T at the observed T (scipy's percentileofscore, kind='rank').
@@ -34,6 +36,8 @@ import torch
 from mind_the_gaps_tpu_torch.gpmodelling import GPModelling, synchronize
 from mind_the_gaps_tpu_torch.lightcurves import GappyLightcurve
 from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood
+from mind_the_gaps_tpu_torch.ops.celerite import batch_team
+from mind_the_gaps_tpu_torch.parallel import Mesh, default_mesh
 from mind_the_gaps_tpu_torch.sampler.ensemble import stretch_draws, stretch_half
 from mind_the_gaps_tpu_torch.solver.batched import batched_log_prob_fn
 
@@ -160,83 +164,196 @@ class LRTResult:
     timings: dict = field(default_factory=dict)
 
 
+class _ShardRun:
+    """The rows ``span`` of a ``batched_max_loglike`` run on one device: their
+    log-probability, the chains' state and the best so far."""
+
+    def __init__(self, log_prob, state, half, span):
+        self.log_prob, self.half, self.span = log_prob, half, span
+        self.G, _, self.nk = state.shape
+        self.device = state.device
+        self.rows = torch.arange(self.G, device=self.device)
+        self.launches = 0
+        self.state = state
+        self.logp = torch.cat([self.lp_eval(state[:, :half]), self.lp_eval(state[:, half:])], dim=1)
+        i0 = torch.argmax(self.logp, dim=1)
+        self.best_lp, self.best_x = self.logp[self.rows, i0], state[self.rows, i0]
+
+    def lp_eval(self, th):  # (G, half, D) -> (G, half)
+        self.launches += 1
+        return self.log_prob(th.reshape(self.G * self.half, self.nk)).reshape(self.G, self.half)
+
+    def step(self, draws, a, tol):
+        """One stretch-move step of both halves from ``draws`` (those of
+        ``stretch_draws(1, (G, half), ...)`` for these rows); returns whether
+        some row improved its best by more than ``tol`` (a 0-d tensor), or
+        None without a ``tol``."""
+        u_z, picks, u_acc = draws
+        half = self.half
+        first, second = self.state[:, :half], self.state[:, half:]
+        first, lp1, _ = stretch_half(first, second, self.logp[:, :half], self.lp_eval, u_z[0, 0], picks[0, 0],
+                                     u_acc[0, 0], a)
+        second, lp2, _ = stretch_half(second, first, self.logp[:, half:], self.lp_eval, u_z[0, 1], picks[0, 1],
+                                      u_acc[0, 1], a)
+        self.state = torch.cat([first, second], dim=1)
+        self.logp = torch.cat([lp1, lp2], dim=1)
+        i = torch.argmax(self.logp, dim=1)
+        cand_lp, cand_x = self.logp[self.rows, i], self.state[self.rows, i]
+        improved = None if tol is None else torch.any(cand_lp > self.best_lp + tol)
+        better = cand_lp > self.best_lp
+        self.best_lp = torch.where(better, cand_lp, self.best_lp)
+        self.best_x = torch.where(better[:, None], cand_x, self.best_x)
+        return improved
+
+
 def batched_max_loglike(
     kernel, t, ys, diags, theta0, walkers: int = 12, n_steps: int = 500, percent: float = 0.1,
     dtype=None, early_stop=None, generator: Optional[torch.Generator] = None, a: float = 2.0,
+    mesh: Optional[Mesh] = None, spmd: str = "gspmd",
 ):
     """Best log-posterior of ``kernel`` for each of G lightcurves by short
     stretch-move chains, all G x ``walkers`` chains in lock-step.
 
-    ``ys``/``diags``: (G, N) data and variance diagonal on the device;
-    ``t`` (N,); ``theta0``: (D,) shared or (G, D) per-row starting points.
-    Each lightcurve's model is the kernel with the unfitted constant mean
-    = the mean of its data.  ``dtype`` (default: that of ``ys``) is the
-    chains' and the likelihood's.  ``early_stop``: optional
-    ``(tol, patience)``: stop once no lightcurve has improved its best by
-    more than ``tol`` for ``patience`` consecutive steps (one host sync a
+    ``ys``/``diags``: (G, N) on the device; ``theta0``: (D,) shared or (G,
+    D) per-row starts.  Each half-ensemble update is one batched likelihood
+    launch of G * walkers/2 elements (the kernel's grouped layout).
+
+    ``early_stop``: optional ``(tol, patience)`` -- stop once no row's best
+    log-probability has improved by more than ``tol`` for ``patience``
+    consecutive steps (checked on the host, one device sync per
     step); ``patience >= n_steps`` reproduces the fixed budget exactly,
     since each step's draws do not depend on the stopping rule.
 
-    Returns (best_lp (G,), best_x (G, D)) on the device.
+    ``mesh`` (``parallel.Mesh``): the G rows are cut into ``mesh.size``
+    contiguous blocks (``torch.tensor_split``, so they may be uneven), block
+    k on ``mesh.devices[k]``.  ``spmd``:
+
+    - "gspmd" (the default): the result equals the unsharded run's bit for
+      bit, whatever the mesh.  Every draw is made on the device of ``ys``
+      from ``generator``, with the calls and shapes of the unsharded run,
+      and its rows are sliced to the shards; each shard keeps its chains,
+      launches its own likelihoods with the layout the whole batch would get
+      (``ops.celerite.batch_team``), and the host issues one step of every
+      shard before it waits on any of them; the early stop is decided over
+      all shards once a step, so all stop together.
+    - "shard_map": shard k is an unsharded run of its rows on its device,
+      from ``generator[k]`` (a sequence of one generator a mesh device, on
+      that device) and with its own early stop, the shards run one after
+      another; the result depends on the mesh (the JAX package's ``fold_in``
+      of the mesh position).
+
+    ``batched_max_loglike.shard_launches`` then holds the likelihood calls
+    of each mesh position (one kernel launch each on a card; one entry
+    without a mesh).  Returns (best_lp (G,), best_x (G, D)) on the device
+    of ``ys``.
     """
+    if spmd not in ("gspmd", "shard_map"):
+        raise ValueError(f"spmd must be 'gspmd' or 'shard_map', not {spmd!r}")
+    if mesh is not None and spmd == "shard_map":
+        return _shard_map_max_loglike(kernel, t, ys, diags, theta0, mesh, generator, walkers=walkers,
+                                      n_steps=n_steps, percent=percent, dtype=dtype, early_stop=early_stop, a=a)
     dtype = ys.dtype if dtype is None else dtype
-    device = ys.device
+    lead = ys.device
     G = ys.shape[0]
     nk = kernel.ndim
     half = walkers // 2
     if 2 * half != walkers:
         raise ValueError("walkers must be even")
+    devices = (lead,) if mesh is None else mesh.devices
+    team = None if mesh is None else batch_team(kernel, G * half, lead)
     bounds = np.asarray(kernel.get_parameter_bounds(), dtype=np.float64)
-    lo = torch.as_tensor(bounds[:, 0], dtype=dtype, device=device)
-    hi = torch.as_tensor(bounds[:, 1], dtype=dtype, device=device)
-    log_prob = batched_log_prob_fn(kernel, t, ys, diags, repeats=half, dtype=dtype)
-
-    def lp_eval(th):  # (G, half, D) -> (G, half)
-        return log_prob(th.reshape(G * half, nk)).reshape(G, half)
-
-    base = torch.as_tensor(theta0, device=device).to(dtype)
+    lo = torch.as_tensor(bounds[:, 0], dtype=dtype, device=lead)
+    hi = torch.as_tensor(bounds[:, 1], dtype=dtype, device=lead)
+    base = torch.as_tensor(theta0, device=lead).to(dtype)
     base = base[:, None, :] if base.dim() == 2 else base
-    noise = torch.randn((G, walkers, nk), generator=generator, dtype=dtype, device=device)
+    noise = torch.randn((G, walkers, nk), generator=generator, dtype=dtype, device=lead)
     init = base + base.abs() * percent * noise
     span_lo = torch.where(torch.isfinite(lo), lo + 0.05 * lo.abs(), lo)
     span_hi = torch.where(torch.isfinite(hi), hi - 0.05 * hi.abs(), hi)
     state = torch.minimum(torch.maximum(init, span_lo), span_hi)
+    data_means = ys.to(dtype).mean(1)  # over the whole batch, for every shard
 
-    logp = torch.cat([lp_eval(state[:, :half]), lp_eval(state[:, half:])], dim=1)
-    rows = torch.arange(G, device=device)
-    i0 = torch.argmax(logp, dim=1)
-    best_lp, best_x = logp[rows, i0], state[rows, i0]
+    runs, launches = [], [0] * len(devices)  # an empty block has no run and no launches
+    for k, (rows, dev) in enumerate(zip(torch.tensor_split(torch.arange(G), len(devices)), devices)):
+        if len(rows):
+            r = slice(int(rows[0]), int(rows[-1]) + 1)
+            log_prob = batched_log_prob_fn(kernel, t.to(dev), ys[r].to(dev), diags[r].to(dev), repeats=half,
+                                           dtype=dtype, team=team, data_means=data_means[r].to(dev))
+            runs.append((k, _ShardRun(log_prob, state[r].to(dev), half, r)))
 
+    tol = None if early_stop is None else early_stop[0]
     last_imp, step = -1, 0
     while step < n_steps and (early_stop is None or step - last_imp < early_stop[1]):
-        u_z, picks, u_acc = stretch_draws(1, (G, half), dtype, device, generator)
-        first, second = state[:, :half], state[:, half:]
-        first, lp1, _ = stretch_half(first, second, logp[:, :half], lp_eval, u_z[0, 0], picks[0, 0], u_acc[0, 0], a)
-        second, lp2, _ = stretch_half(second, first, logp[:, half:], lp_eval, u_z[0, 1], picks[0, 1], u_acc[0, 1], a)
-        state = torch.cat([first, second], dim=1)
-        logp = torch.cat([lp1, lp2], dim=1)
-        i = torch.argmax(logp, dim=1)
-        cand_lp, cand_x = logp[rows, i], state[rows, i]
-        if early_stop is not None and bool(torch.any(cand_lp > best_lp + early_stop[0])):
+        u_z, picks, u_acc = stretch_draws(1, (G, half), dtype, lead, generator)
+        improved = [run.step(tuple(d[:, :, run.span].to(run.device) for d in (u_z, picks, u_acc)), a, tol)
+                    for _, run in runs]
+        if tol is not None and any(bool(x) for x in improved):  # the host waits here, after every shard's step
             last_imp = step
-        better = cand_lp > best_lp
-        best_lp = torch.where(better, cand_lp, best_lp)
-        best_x = torch.where(better[:, None], cand_x, best_x)
         step += 1
-    return best_lp, best_x
+    for k, run in runs:
+        launches[k] = run.launches
+    batched_max_loglike.shard_launches = launches
+    return (torch.cat([run.best_lp.to(lead) for _, run in runs]),
+            torch.cat([run.best_x.to(lead) for _, run in runs]))
+
+
+batched_max_loglike.shard_launches = []
+
+
+def _shard_map_max_loglike(kernel, t, ys, diags, theta0, mesh, generators, **kw):
+    """``batched_max_loglike``'s "shard_map" mode: an unsharded run of each
+    mesh position's rows on its device from its own generator."""
+    generators = list(generators)
+    if len(generators) != mesh.size:
+        raise ValueError(f"shard_map takes one generator a mesh device ({mesh.size}), got {len(generators)}")
+    theta0 = torch.as_tensor(theta0)
+    lps, xs, launches = [], [], []
+    for rows, dev, gen in zip(torch.tensor_split(torch.arange(ys.shape[0]), mesh.size), mesh.devices, generators):
+        if len(rows) == 0:
+            launches.append(0)
+            continue
+        r = slice(int(rows[0]), int(rows[-1]) + 1)
+        lp, x = batched_max_loglike(kernel, t.to(dev), ys[r].to(dev), diags[r].to(dev),
+                                    theta0[r] if theta0.dim() == 2 else theta0, generator=gen, **kw)
+        lps.append(lp.to(ys.device))
+        xs.append(x.to(ys.device))
+        launches += batched_max_loglike.shard_launches
+    batched_max_loglike.shard_launches = launches
+    return torch.cat(lps), torch.cat(xs)
+
+
+def _node_mesh(device) -> Optional[Mesh]:
+    """The mesh of every visible card when ``device`` is CUDA without a card
+    index and more than one card is visible, else None: a device that names
+    its card keeps the work on that card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None and torch.cuda.device_count() > 1:
+        return default_mesh()
+    return None
 
 
 def fit_lightcurves_batch(
     kernel, times, ys, dys, theta0, walkers: int = 12, n_steps: int = 500, percent: float = 0.1,
-    chunk: int = 512, dtype=None, early_stop=None, seed: int = 0, device="cuda",
+    chunk: int = 512, dtype=None, early_stop=None, seed: int = 0, device="cuda", use_mesh: bool = False,
+    spmd: str = "gspmd",
 ):
     """Max log-likelihood of ``kernel`` fit to each of B lightcurves
     (B, N) sharing ``times``, by ``batched_max_loglike`` over chunks of
     ``chunk`` lightcurves; ``theta0`` (D,) or per-row (B, D).  Chunk ``i``
     draws from a generator seeded from ``(seed, i)``.
 
+    ``use_mesh``: when ``device`` is "cuda" (no card index) and more than
+    one card is visible, shard each chunk's rows over them all
+    (``parallel.default_mesh``) as ``spmd`` says (``batched_max_loglike``):
+    with "gspmd" the result is the one-card result bit for bit; with
+    "shard_map" shard k of chunk i draws from a generator seeded from
+    ``(seed, i, k)`` on its card.  A device that names its card never
+    shards.  Off by default (the JAX package's default is on): over four
+    cards the sharded refits took longer than one card's (PERF.md).
+
     Returns numpy (best_loglikes (B,), best_params (B, D))."""
     device = torch.device(device)
+    mesh = _node_mesh(device) if use_mesh else None
     ys = torch.as_tensor(np.asarray(ys, dtype=np.float64), device=device)
     diags = (torch.as_tensor(np.asarray(dys, dtype=np.float64), device=device) + 1e-12) ** 2
     theta0 = np.asarray(theta0, dtype=np.float64)
@@ -246,10 +363,14 @@ def fit_lightcurves_batch(
     lls, xs = [], []
     for ci, s in enumerate(range(0, ys.shape[0], chunk)):
         th0 = theta0[s : s + chunk] if theta0.ndim == 2 else theta0
+        if mesh is not None and spmd == "shard_map":
+            gen = [_derived_generator(dev, seed, ci, k) for k, dev in enumerate(mesh.devices)]
+        else:
+            gen = _derived_generator(device, seed, ci)
         best_lp, best_x = batched_max_loglike(
             kernel, t, ys[s : s + chunk], diags[s : s + chunk], th0, walkers=walkers,
             n_steps=n_steps, percent=percent, dtype=dtype, early_stop=early_stop,
-            generator=_derived_generator(device, seed, ci),
+            generator=gen, mesh=mesh, spmd=spmd,
         )
         lls.append(best_lp.cpu().numpy())
         xs.append(best_x.cpu().numpy())
@@ -281,6 +402,7 @@ def protassov_lrt(
     checkpoint: Optional[str] = None,
     sim_early_stop=(0.01, 50),
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> LRTResult:
     """Run the Protassov LRT end to end on ``device``.
 
@@ -305,6 +427,17 @@ def protassov_lrt(
     the posterior draws, the refits' starts and bounds and the settings) or
     one that cannot be read is recomputed with a warning.  Ignored, with a
     warning, under ``keep_simulations``.
+
+    The run stays on ``device`` unless given a ``mesh`` (``parallel.Mesh``,
+    e.g. ``parallel.default_mesh()``): then each chunk is generated on
+    ``device`` and its rows are sliced to the mesh for the refits
+    (``batched_max_loglike``'s "gspmd" mode), so the results equal the
+    unsharded run's bit for bit, and a checkpoint written on one card
+    resumes bit-identically over a mesh.  The observed fits stay on
+    ``device``: each is one dependent chain, no faster over more cards
+    (pass models fit with ``derive_posteriors(mesh=)`` to shard them).  One
+    host thread issues every shard's work, and over four cards the sharded
+    run took longer than one card's (PERF.md).
     """
     if nsims < 1:
         raise ValueError("nsims must be >= 1 (the p-value is the tail fraction of the simulated T distribution)")
@@ -396,12 +529,12 @@ def protassov_lrt(
         clock = time.perf_counter()
         nl, nx = batched_max_loglike(
             null_kernel, t64, rates, diags, starts, walkers=sim_walkers, n_steps=sim_max_steps,
-            dtype=sim_dtype, early_stop=sim_early_stop, generator=_derived_generator(device, seed, ci, 0),
+            dtype=sim_dtype, early_stop=sim_early_stop, generator=_derived_generator(device, seed, ci, 0), mesh=mesh,
         )
         al, ax = batched_max_loglike(
             alt_kernel, t64, rates, diags, _alt_theta0_rows(null_kernel, alt_kernel, starts),
             walkers=sim_walkers, n_steps=sim_max_steps, dtype=sim_dtype, early_stop=sim_early_stop,
-            generator=_derived_generator(device, seed, ci, 1),
+            generator=_derived_generator(device, seed, ci, 1), mesh=mesh,
         )
         synchronize(device)
         timings["refits_s"] += time.perf_counter() - clock

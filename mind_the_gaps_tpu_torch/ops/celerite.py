@@ -29,8 +29,10 @@ Layout (``team_size``): a team of 32 lanes (a warp) per likelihood at
 small batches, 8 lanes at large ones.  The kernel's compile-time bodies
 (packed and dense-S) cover the (Jr, Jc) of ``STATIC_WIDTHS``; any other
 R >= 1 runs its runtime-R body, which takes the warp layout only.
-``_launch`` takes the layout as an argument, for tests that hold each
-layout against the plain version.
+``team=`` pins a layout: the shards of a sharded batch (``parallel``) launch
+with the layout of the whole batch (``batch_team``), so that each row gets
+the bits it gets there.  ``_launch`` takes the layout as an argument, for
+tests that hold each layout against the plain version.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ import torch
 from mind_the_gaps_tpu_torch.ops._build import device_scope, load_library, stream_handle
 from mind_the_gaps_tpu_torch.solver.batched import batched_log_likelihood, check_layout
 
-__all__ = ["celerite_log_likelihood", "celerite_log_likelihood_plain", "team_size", "STATIC_WIDTHS",
+__all__ = ["celerite_log_likelihood", "celerite_log_likelihood_plain", "team_size", "batch_team", "STATIC_WIDTHS",
            "WARP_TEAM_MAX_PER_SM", "TEAMS", "check_coefficients"]
 
 celerite_log_likelihood_plain = batched_log_likelihood
@@ -82,6 +84,17 @@ def _sm_count(device) -> int:
     return _SM_COUNT[idx]
 
 
+def batch_team(kernel, B: int, device):
+    """The layout (lanes per likelihood) of a launch of ``B`` likelihoods of
+    ``kernel`` (a term or term sum) on ``device``; None off a card, where
+    there is no layout."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    c = kernel.coefficients()
+    return team_size(B, _sm_count(device), c.ar.shape[-1], c.ac.shape[-1])
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(dtype):
     fn = getattr(load_library(_ENTRY[dtype]), _ENTRY[dtype])
@@ -117,14 +130,18 @@ def check_coefficients(coeffs):
     return B, Jr, Jc
 
 
-def celerite_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None, sym: bool = True):
-    """(B,) log-likelihoods; -inf where K(theta_b) is not positive definite."""
+def celerite_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None, sym: bool = True,
+                            team=None):
+    """(B,) log-likelihoods; -inf where K(theta_b) is not positive definite.
+    ``team``: the kernel's lanes per likelihood (one of TEAMS), by default
+    ``team_size``'s for this batch; the plain version has no layout and
+    ignores it."""
     ar = coeffs[0]
     if ar.device.type == "cpu":
         return celerite_log_likelihood_plain(
             coeffs, t, y, diag, mean=mean, repeats=repeats, extra_diag=extra_diag
         )
-    return _launch(coeffs, t, y, diag, mean, repeats, extra_diag, sym, team=None)
+    return _launch(coeffs, t, y, diag, mean, repeats, extra_diag, sym, team=team)
 
 
 def _launch(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None, sym: bool = True, team=None):

@@ -177,7 +177,8 @@ def batched_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, extr
     return torch.where(ok, ll, ll.new_full((), -math.inf))
 
 
-def batched_log_prob_fn(kernel, t, y, diag, subtract_mean: bool = True, repeats: int = 1, dtype=None):
+def batched_log_prob_fn(kernel, t, y, diag, subtract_mean: bool = True, repeats: int = 1, dtype=None, team=None,
+                        data_means=None):
     """thetas (B, D) -> log-probs (B,): the kernel's flat prior within its
     bounds plus the batched likelihood of ``ops.celerite_log_likelihood``
     (the CUDA kernel for tensors on a card, this module's recursion on the
@@ -186,8 +187,11 @@ def batched_log_prob_fn(kernel, t, y, diag, subtract_mean: bool = True, repeats:
     ``y``/``diag``: (N,) shared or (G, N) per group with B = G *
     ``repeats``.  With ``subtract_mean``, each element's constant mean is
     the mean of its own data (the reference's default unfitted
-    ConstantModel).  ``dtype`` selects the likelihood's precision (default:
-    that of ``y``)."""
+    ConstantModel), or of the group's entry of ``data_means`` ((G,) or 0-d,
+    in ``dtype``) where given: the shards of a batch take the means of the
+    whole batch's reduction.  ``dtype`` selects the likelihood's precision
+    (default: that of ``y``), ``team`` the kernel's layout
+    (``ops.celerite_log_likelihood``)."""
     from mind_the_gaps_tpu_torch.ops.celerite import celerite_log_likelihood  # it imports this module
 
     y = torch.as_tensor(y)
@@ -195,7 +199,8 @@ def batched_log_prob_fn(kernel, t, y, diag, subtract_mean: bool = True, repeats:
     y = y.to(dtype)
     diag = torch.as_tensor(diag, device=y.device).to(dtype)
     grouped = y.dim() > 1 or diag.dim() > 1
-    data_means = (y.mean() if y.dim() == 1 else y.mean(1)) if subtract_mean else None
+    if subtract_mean and data_means is None:
+        data_means = y.mean() if y.dim() == 1 else y.mean(1)
     means = {}  # batch size -> its (B,) means, built once
 
     def log_prob(thetas):
@@ -211,7 +216,7 @@ def batched_log_prob_fn(kernel, t, y, diag, subtract_mean: bool = True, repeats:
                 mean = data_means.repeat(B) if y.dim() == 1 else data_means.repeat_interleave(repeats)
                 means[B] = mean
         ll = celerite_log_likelihood(coeffs, t, y, diag, mean=mean, repeats=repeats if grouped else 1,
-                                     extra_diag=jitter)
+                                     extra_diag=jitter, team=team)
         return torch.where(torch.isfinite(lp), lp + ll, ll.new_full((), -math.inf))
 
     return log_prob

@@ -53,6 +53,7 @@ PORT_EXTRA_API = {
                                    "plot_t_distribution", "plot_standardized_residuals"],
     "mind_the_gaps_tpu.solver.kalman": ["state_space_matrices", "kalman_log_likelihood",
                                         "parallel_kalman_log_likelihood"],
+    "mind_the_gaps_tpu.parallel": ["default_mesh", "shard_batch", "pad_to_multiple"],
 }
 
 # class members the port added after the JAX package's list was taken

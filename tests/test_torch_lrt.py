@@ -181,17 +181,14 @@ def test_protassov_lrt_ab_against_jax():
 
 
 def test_options_not_ported_are_refused():
-    """Mesh mode is not ported: it raises (a fitted mean and chains > 1 are
-    ported, and refused only with a mesh; checkpoint/resume is ported,
-    test_checkpoint_resume_reproduces_full_run)."""
+    """Every option of ``derive_posteriors`` is ported (mesh mode too, held in
+    test_torch_mesh.py; checkpoint/resume in
+    test_checkpoint_resume_reproduces_full_run); what is refused is an
+    option's value out of its range: ``chains < 1`` raises ValueError, as in
+    the JAX package."""
     lc = lightcurve_from_jax(_drw_lc(seed=10, n=30))
-    null_t, alt_t = _kernels(tk)
+    null_t, _ = _kernels(tk)
     gp = TGP(lc, null_t, device="cpu")
-    with pytest.raises(NotImplementedError):
-        gp.derive_posteriors(mesh=object(), fit=False, max_steps=10)
-    with pytest.raises(NotImplementedError):
-        TGP(lc, null_t, mean_model="constant", device="cpu").derive_posteriors(
-            mesh=object(), chains=2, fit=False, max_steps=10)
     with pytest.raises(ValueError):
         gp.derive_posteriors(chains=0, fit=False, max_steps=10)
 
