@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --processes-only   # phases 1, 2, 4, 6, 12 and 13, e.g. on four cards
 
 Phases, each printed with its seconds:
 
@@ -78,7 +79,18 @@ Phases, each printed with its seconds:
    ``torch.equal``; each shard_map shard equal to the unsharded run of its
    rows with its own generator), their seconds and each shard's launches;
    then a 200-step ``derive_posteriors(mesh=)`` of the alternative at 32
-   walkers, equal to the unsharded chain bit for bit.
+   walkers, equal to the unsharded chain bit for bit;
+13. processes: phase 4's bootstrap over phase 12's mesh in this process
+   (equal to phase 4), then ``max(2, device_count)`` ranks under
+   ``torch.distributed`` (gloo; this script re-run with ``--rank-of``, a card a
+   rank, both on the one card when there is one), each rank's seconds and
+   launches printed: phase 4's full-width bootstrap (its fitted posteriors
+   passed through files) whose T distribution, t_obs and p must equal phase
+   4's, phase 12's shard_map refits equal to phase 12's, and phase 6's E13
+   generation equal to this process's over a mesh of as many positions, all
+   bit for bit (against phase 6's unsharded call the rows that differ are
+   printed: cuFFT may round a row otherwise at another batch).  A rank that
+   fails or does not finish within ``RANKS_TIMEOUT_S`` fails the script.
 
 Phase 3 also holds the latency probe ``ops/fma_probe.py`` (``csrc/fma_chain.cu``,
 dependent multiply-add chains) against its plain version in float32 and
@@ -86,8 +98,8 @@ float64, and drives the probe's own entry point (``fma_probe.probe``),
 whose ns per iteration give the card's dependent-FMA latency.
 
 The last lines are the card's name and power limit, one JSON line of the
-kernels (route, source, launches in the main paths, error, times and
-bound) and ``{"ok": true, "device": {...}}``.  Any failure raises: there is
+kernels (route, source, launches in the main paths, phase 13's ranks
+included, error, times and bound) and ``{"ok": true, "device": {...}}``.  Any failure raises: there is
 no CPU path, and the script fails outside a checkout of the repository.
 """
 from __future__ import annotations
@@ -148,6 +160,8 @@ BEFORE_REDESIGN_MS = {
 # the gradient kernel's aim: at most this many times its latency floor at
 # the MAP fit's shapes (R = 1 and 3)
 GRAD_FLOOR_AIM = 3.0
+# phase 13: seconds for all its ranks to finish
+RANKS_TIMEOUT_S = 600
 
 
 def before_note(name):
@@ -158,6 +172,28 @@ def before_note(name):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood, rank_remap, sort_kv
+    from mind_the_gaps_tpu_torch.ops.celerite_grad import celerite_log_likelihood_and_grad
+
+    celerite_log_likelihood.launches = celerite_log_likelihood.dense_launches = 0
+    celerite_log_likelihood.team_launches = dict.fromkeys(celerite_log_likelihood.team_launches, 0)
+    rank_remap.launches = sort_kv.launches = celerite_log_likelihood_and_grad.launches = 0
+
+
+def read_counts():
+    """The kernel wrappers' launch counts since ``reset_counts``."""
+    from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood, rank_remap, sort_kv
+    from mind_the_gaps_tpu_torch.ops.celerite_grad import celerite_log_likelihood_and_grad
+
+    return dict(celerite=celerite_log_likelihood.launches, celerite_dense=celerite_log_likelihood.dense_launches,
+                celerite_warp=celerite_log_likelihood.team_launches[32],
+                celerite_split=sum(v for k, v in celerite_log_likelihood.team_launches.items() if k != 32),
+                rank_remap=rank_remap.launches, sort_kv=sort_kv.launches,
+                celerite_grad=celerite_log_likelihood_and_grad.launches)
 
 
 def card_line() -> str:
@@ -853,16 +889,14 @@ def lrt_scenario(n=5000):
     return lc, null, alt
 
 
-def e13_generation_rate(card, dev, n_points=500, B=256):
-    """Phase 6: lognormal (E13) generation at the tutorial-scale segment
-    (~6.6k fine samples -> the 8192 power-of-two cut), the scenario of the
-    JAX package's bench.py, on ``dev``."""
+def e13_problem(dev, n_points=500, B=256):
+    """Phase 6's problem on ``dev``: the simulator of the tutorial-scale
+    segment (~6.6k fine samples -> the 8192 power-of-two cut; the scenario
+    of the JAX package's bench.py) and ``B`` DRW PSDs (B, n_freq)."""
     import numpy as np
     import torch
 
-    from mind_the_gaps_tpu_torch.gpmodelling import synchronize
     from mind_the_gaps_tpu_torch.kernels import DampedRandomWalk
-    from mind_the_gaps_tpu_torch.ops import rank_remap
     from mind_the_gaps_tpu_torch.simulator import Simulator
 
     rng = np.random.default_rng(0)
@@ -875,7 +909,19 @@ def e13_generation_rate(card, dev, n_points=500, B=256):
     omega = torch.as_tensor(sim.omega[1:], dtype=torch.float64, device=dev)
     thetas = torch.as_tensor(theta0[None, :] + 0.15 * rng.standard_normal((B, 2)), device=dev)
     psd = kernel.get_psd(omega, thetas)
-    psd = torch.cat([psd.new_zeros((B, 1)), psd], dim=1)
+    return sim, torch.cat([psd.new_zeros((B, 1)), psd], dim=1)
+
+
+def e13_generation_rate(card, dev, n_points=500, B=256):
+    """Phase 6: lognormal (E13) generation of ``e13_problem`` on ``dev``;
+    returns the rates of the timed call (generator seed 2) and its count of
+    rows that hit max_iter."""
+    import torch
+
+    from mind_the_gaps_tpu_torch.gpmodelling import synchronize
+    from mind_the_gaps_tpu_torch.ops import rank_remap
+
+    sim, psd = e13_problem(dev, n_points, B)
     sim.simulate_batch(psd, generator=torch.Generator(dev).manual_seed(1))  # warm-up
     synchronize(dev)
     launches = rank_remap.launches
@@ -889,6 +935,7 @@ def e13_generation_rate(card, dev, n_points=500, B=256):
     print(f"[e13] lognormal generation n={n_points}, B={B}, cut {sim._e13_cut_len}: {elapsed:.4f} s, "
           f"{B / elapsed:.1f} lightcurves/s, E13 iterations mean {float(iters.mean()):.1f} "
           f"max {int(iters.max())}, remap launches {rank_remap.launches - launches} [{card}]", flush=True)
+    return out, int(torch.sum(sim._last_e13_iters >= sim.max_iter))
 
 
 def tutorial_candidates():
@@ -1075,7 +1122,8 @@ def mesh_phase(card, lc, null, alt, res):
     turns; the gspmd result must equal the unsharded one (``torch.equal``),
     each shard_map shard its own unsharded run; then a 200-step
     ``derive_posteriors`` of the alternative at 32 walkers over the mesh
-    must equal the unsharded chain bit for bit."""
+    must equal the unsharded chain bit for bit.  Returns the refits' inputs
+    (host arrays) and the shard_map result, for phase 13."""
     import numpy as np
     import torch
 
@@ -1167,17 +1215,277 @@ def mesh_phase(card, lc, null, alt, res):
           "the mesh-mode chain differs from the unsharded chain")
     print("[mesh] the mesh-mode chain, log-probabilities and samples equal the unsharded run's bit for bit",
           flush=True)
+    return dict(t64=t64.cpu().numpy(), rates=rates.cpu().numpy(), diags=diags.cpu().numpy(), starts=starts,
+                sm_lp=sm_lp.cpu().numpy(), sm_x=sm_x.cpu().numpy(), size=mesh.size)
+
+
+def processes_phase(card, lc, null, alt, res, mesh_run, e13_run, workdir, nsims):
+    """Phase 13, processes: phase 4's bootstrap (its fitted posteriors passed
+    through files in ``workdir``), phase 12's shard_map refits and phase 6's
+    E13 generation across ``max(2, device_count)`` ranks, one process each
+    (``chip_smoke.py --rank-of W``: torch.distributed, gloo, a card a rank,
+    both on the one card when there is one), each equal to its one-process
+    run bit for bit (the E13 generation: to this process's over phase 12's
+    mesh, whose positions hold the ranks' rows); before them, in this
+    process, phase 4's bootstrap over phase 12's one-process mesh, equal to
+    phase 4 too.  Returns the launch counts of the ranks (summed) and of the
+    one-process mesh run."""
+    import os
+    import socket
+
+    import numpy as np
+    import torch
+
+    from mind_the_gaps_tpu_torch.lrt import protassov_lrt
+    from mind_the_gaps_tpu_torch.parallel import Mesh, default_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n_cards = torch.cuda.device_count()
+    world = max(2, n_cards)
+    res.null_model.save_posteriors(workdir / "null.npz")
+    res.alt_model.save_posteriors(workdir / "alt.npz")
+    np.savez(workdir / "mesh_inputs.npz", **{k: mesh_run[k] for k in ("t64", "rates", "diags", "starts")})
+
+    def same_lrt(other, what):
+        check(np.array_equal(other.t_dist, res.t_dist) and other.t_obs == res.t_obs and other.p_value == res.p_value
+              and other.t_obs_posterior == res.t_obs_posterior, f"{what}: T, t_obs or p differ from phase 4's")
+
+    # PR 8's way: phase 4's bootstrap over a mesh of this one process
+    mesh = default_mesh() if n_cards >= 2 else Mesh((dev, dev))
+    reset_counts()
+    torch.cuda.synchronize()
+    clock = time.perf_counter()
+    one = protassov_lrt(lc, null, alt, nsims=nsims, seed=0, null_model=res.null_model, alt_model=res.alt_model,
+                        sim_max_steps=500, sim_walkers=12, chunk=512, device="cuda", mesh=mesh)
+    for d in set(mesh.devices):
+        torch.cuda.synchronize(d)
+    one_s, one_counts = time.perf_counter() - clock, read_counts()
+    same_lrt(one, "the bootstrap over the one-process mesh")
+    print(f"[processes] one process, mesh of {mesh.size} on {[str(d) for d in mesh.devices]}: bootstrap "
+          f"{one_s:.3f} s (generation {one.timings['generation_s']:.3f}, refits {one.timings['refits_s']:.3f}, refine "
+          f"{one.timings['refine_s']:.3f}), launches {one_counts}; T, t_obs and p equal phase 4's (refits there "
+          f"{res.timings['refits_s']:.3f} s on one card) [{card}]", flush=True)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, logs = [], []
+    try:
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            logs.append(open(workdir / f"rank{rank}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-of", str(world), "--workdir", str(workdir),
+                 "--nsims", str(nsims)], env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + RANKS_TIMEOUT_S
+        for rank, proc in enumerate(procs):
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"rank {rank} did not finish within {RANKS_TIMEOUT_S} s") from None
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    for rank, proc in enumerate(procs):
+        text = (workdir / f"rank{rank}.log").read_text()
+        for line in text.splitlines():
+            if line.startswith("[rank"):
+                print(line, flush=True)
+        check(proc.returncode == 0, f"rank {rank} of {world} failed (exit {proc.returncode}):\n{text[-4000:]}")
+
+    reports = [json.loads((workdir / f"rank{rank}.json").read_text()) for rank in range(world)]
+    with np.load(workdir / "rank0.npz") as d:
+        out = {k: d[k] for k in d.files}
+    check(np.array_equal(out["t_dist"], res.t_dist)
+          and [float(v) for v in out["scalars"]] == [res.t_obs, res.p_value, res.t_obs_posterior],
+          f"the bootstrap across {world} ranks: T, t_obs or p differ from phase 4's")
+    check(np.array_equal(out["sm_lp"], mesh_run["sm_lp"]) and np.array_equal(out["sm_x"], mesh_run["sm_x"]),
+          f"the shard_map refits across {world} ranks differ from phase 12's over {mesh_run['size']} shards")
+    # E13: the ranks against this process over a mesh of as many positions (the same rows a transform), bit for
+    # bit; against phase 6's unsharded call, where cuFFT's plan for another batch may round otherwise, reported
+    sim, psd = e13_problem(dev)
+    one_e13 = sim.simulate_batch(psd, generator=torch.Generator(dev).manual_seed(2), mesh=mesh,
+                                 warn_nonconverged=False).cpu().numpy()
+    one_nonconv = sim.report_nonconverged(warn=False)
+    check(np.array_equal(out["e13_rates"], one_e13) and int(out["e13_nonconv"]) == one_nonconv,
+          f"the E13 generation across {world} ranks differs from this process's over a mesh of {mesh.size}")
+    # where a block's rows can round otherwise: each step of the generation on a block of the batch's rows
+    # against those rows of the whole batch
+    from mind_the_gaps_tpu_torch.simulator import tk95_rates
+
+    normals = torch.randn(psd.shape[:-1] + (2, sim.fftndatapoints // 2 + 1), dtype=psd.dtype, device=dev,
+                          generator=torch.Generator(dev).manual_seed(3))
+    m = sim._e13_cut_len
+    steps = {
+        "TK95 irfft f64": lambda rows: tk95_rates(psd[rows], sim.fftndatapoints, sim.sim_dt, normals=normals[rows]),
+        "row mean f64": lambda rows: steps["TK95 irfft f64"](rows).mean(dim=-1),
+        "segment std f64": lambda rows: steps["TK95 irfft f64"](rows)[:, :m].std(dim=-1, correction=0),
+        "E13 rfft f32": lambda rows: torch.fft.rfft(steps["TK95 irfft f64"](rows)[:, :m].float(), dim=-1),
+        "E13 irfft f32": lambda rows: torch.fft.irfft(steps["E13 rfft f32"](rows), n=m, dim=-1),
+        "downsample cumsum f64": lambda rows: torch.cumsum(steps["TK95 irfft f64"](rows)[:, :m], dim=-1),
+    }
+    for block in (128, 64):
+        same = {}
+        for name, step in steps.items():
+            a, b = step(slice(None))[:block], step(slice(0, block))
+            same[name] = "equal" if torch.equal(a, b) else f"max |diff| {float((a - b).abs().max()):.3e}"
+        print(f"[processes] generation steps, a {block}-row batch against those rows of the {psd.shape[0]}-row "
+              f"batch: {same} [{card}]", flush=True)
+    e13_rates, e13_nonconv = e13_run
+    e13_diff = np.abs(out["e13_rates"] - e13_rates.cpu().numpy())
+    print(f"[processes] E13 ({len(e13_diff)} rows, {-(-len(e13_diff) // world)} a rank) across {world} ranks: equal "
+          f"to this process's over a mesh of {mesh.size} bit for bit; against phase 6's unsharded call "
+          f"{int((e13_diff.max(1) > 0).sum())} rows differ, max |diff| {float(e13_diff.max()):.3e}, non-converged "
+          f"{int(out['e13_nonconv'])} against {e13_nonconv} [{card}]", flush=True)
+    for rep_ in reports:
+        timings = rep_["timings"]
+        print(f"[processes] rank {rep_['rank']} of {world} on {rep_['device']}: bootstrap "
+              f"{rep_['bootstrap_s']:.3f} s (generation {timings['generation_s']:.3f}, refits "
+              f"{timings['refits_s']:.3f}, refine {timings['refine_s']:.3f}) launches {rep_['bootstrap']}; shard_map "
+              f"{rep_['shard_map_s']:.3f} s launches {rep_['shard_map']}; E13 {rep_['e13_s']:.4f} s launches "
+              f"{rep_['e13']}; process_any {rep_['process_any_us']:.1f} us a call [{card}]", flush=True)
+    print(f"[processes] {nsims}-simulation bootstrap: refits {res.timings['refits_s']:.3f} s on one card (phase 4), "
+          f"{one.timings['refits_s']:.3f} s over the one-process mesh of {mesh.size}, "
+          f"{[round(r['timings']['refits_s'], 3) for r in reports]} s across {world} ranks; T, t_obs and p equal "
+          f"phase 4's, shard_map equal to phase 12's, E13 equal to the one-process mesh's, bit for bit [{card}]",
+          flush=True)
+    ranks_counts = {k: sum(r[part][k] for r in reports for part in ("bootstrap", "shard_map", "e13"))
+                    for k in one_counts}
+    return ranks_counts, one_counts
+
+
+def rank_main(args):
+    """One rank of phase 13 (``--rank-of W``): joins the group from the
+    environment phase 13 sets (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT) on its card, runs phase 4's bootstrap, phase 12's shard_map
+    refits and phase 6's E13 generation over the processes' mesh, writes its
+    seconds and launches to ``rank<r>.json`` and rank 0 the results to
+    ``rank0.npz`` in ``--workdir``."""
+    import numpy as np
+    import torch
+
+    from mind_the_gaps_tpu_torch.gpmodelling import GPModelling
+    from mind_the_gaps_tpu_torch.lrt import _derived_generator, batched_max_loglike, protassov_lrt
+    from mind_the_gaps_tpu_torch.parallel import initialize, process_any, process_mesh, shutdown
+
+    check(torch.cuda.is_available(), "no CUDA device: a rank of phase 13 runs on a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(args.workdir)
+    dev = initialize()
+    mesh = process_mesh()
+    rank = mesh.process_index
+    check(mesh.process_count == args.rank_of, f"the group has {mesh.process_count} ranks, not {args.rank_of}")
+    report = {"rank": rank, "device": str(dev)}
+
+    def timed(name, fn):
+        reset_counts()
+        torch.cuda.synchronize(dev)
+        clock = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize(dev)
+        report[name + "_s"], report[name] = time.perf_counter() - clock, read_counts()
+        print(f"[rank {rank}] {name}: {report[name + '_s']:.3f} s on {dev}, launches {report[name]}", flush=True)
+        return result
+
+    lc, null, alt = lrt_scenario()
+    models = []
+    for kernel, name in ((null, "null"), (alt, "alt")):
+        models.append(GPModelling(lc, kernel, device=dev))
+        models[-1].load_posteriors(work / f"{name}.npz")
+    res = timed("bootstrap", lambda: protassov_lrt(
+        lc, null, alt, nsims=args.nsims, seed=0, null_model=models[0], alt_model=models[1], sim_max_steps=500,
+        sim_walkers=12, chunk=512, device="cuda", mesh=mesh))
+    report["timings"] = res.timings
+
+    with np.load(work / "mesh_inputs.npz") as d:  # host arrays: a rank moves only its own rows to its card
+        t64, rates, diags, starts = (torch.as_tensor(d[k]) for k in ("t64", "rates", "diags", "starts"))
+    gens = [_derived_generator(d, 0, 0, k) for k, d in zip(mesh.local_positions, mesh.devices)]
+    sm_lp, sm_x = timed("shard_map", lambda: batched_max_loglike(
+        alt, t64, rates, diags, starts, walkers=12, n_steps=500, dtype=torch.float32, early_stop=(0.01, 50),
+        generator=gens, mesh=mesh, spmd="shard_map"))
+
+    sim, psd = e13_problem(dev)
+    e13 = timed("e13", lambda: sim.simulate_batch(psd, generator=torch.Generator(dev).manual_seed(2), mesh=mesh,
+                                                  warn_nonconverged=False))
+    nonconv = sim.report_nonconverged(warn=False)
+    check(e13.shape == (256, 500) and bool(torch.isfinite(e13).all()), "the E13 rates are not finite")
+    check("jax" not in sys.modules, "the port imported jax")
+
+    # the cost of the early stop's collective alone, one a refit step
+    calls = 1000
+    clock = time.perf_counter()
+    for i in range(calls):
+        process_any(i == calls - 1 and rank == 0)
+    report["process_any_us"] = (time.perf_counter() - clock) / calls * 1e6
+    print(f"[rank {rank}] process_any (gloo all_reduce of one int): {report['process_any_us']:.1f} us a call over "
+          f"{calls} calls", flush=True)
+
+    (work / f"rank{rank}.json").write_text(json.dumps(report))
+    if rank == 0:
+        np.savez(work / "rank0.npz", t_dist=res.t_dist,
+                 scalars=np.array([res.t_obs, res.p_value, res.t_obs_posterior]), sm_lp=sm_lp.cpu().numpy(),
+                 sm_x=sm_x.cpu().numpy(), e13_rates=e13.cpu().numpy(),
+                 e13_nonconv=np.int64(nonconv))
+    shutdown()
+
+
+def gaussian_lrt(lc, null, alt, args):
+    """Phase 4's run: ``protassov_lrt`` on the lrt_512 scenario on the card."""
+    import torch
+
+    from mind_the_gaps_tpu_torch.lrt import protassov_lrt
+
+    res = protassov_lrt(lc, null, alt, nsims=args.nsims, seed=0, observed_max_steps=args.observed_max_steps,
+                        observed_walkers=32, sim_max_steps=500, sim_walkers=12, chunk=512, device="cuda")
+    torch.cuda.synchronize()
+    return res
+
+
+def processes_only(card, args):
+    """``--processes-only``: phase 13 and what it is held against (phases 4,
+    6 and 12), for a run on several cards; no kernel or ``ok`` line."""
+    import torch
+
+    lc, null, alt = lrt_scenario()
+    t0 = time.perf_counter()
+    res = gaussian_lrt(lc, null, alt, args)
+    print(f"[main] t_obs = {res.t_obs:.6f}, p_value = {res.p_value:.6f}, timings {res.timings}", flush=True)
+    phase("Gaussian main path", t0)
+    t0 = time.perf_counter()
+    e13_run = e13_generation_rate(card, torch.device("cuda"))
+    phase("tutorial-scale E13 generation", t0)
+    t0 = time.perf_counter()
+    mesh_run = mesh_phase(card, lc, null, alt, res)
+    phase("mesh", t0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
+        processes_phase(card, lc, null, alt, res, mesh_run, e13_run, Path(tmp), args.nsims)
+    phase("processes", t0)
+    print(card, flush=True)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nsims", type=int, default=512)
     ap.add_argument("--observed-max-steps", type=int, default=10_000)
+    ap.add_argument("--rank-of", type=int, default=0,
+                    help="run as one rank of phase 13's W ranks (phase 13 sets it)")
+    ap.add_argument("--workdir", help="phase 13's work directory (with --rank-of)")
+    ap.add_argument("--processes-only", action="store_true",
+                    help="run phases 1, 2, 4, 6, 12 and 13 only (phase 13 on several cards); prints no ok line")
     args = ap.parse_args(argv)
 
     check((ROOT / "mind_the_gaps_tpu_torch" / "csrc").is_dir(),
           "chip_smoke.py runs from a checkout of the repository (mind_the_gaps_tpu_torch/ not found)")
     sys.path.insert(0, str(ROOT))
+    if args.rank_of:
+        return rank_main(args)
     import numpy as np
     import torch
 
@@ -1194,13 +1502,14 @@ def main(argv=None):
 
     # ---- 2. build ----------------------------------------------------- #
     t0 = time.perf_counter()
-    from mind_the_gaps_tpu_torch.ops import _build, celerite_log_likelihood, rank_remap, sort_kv
-    from mind_the_gaps_tpu_torch.ops.celerite_grad import celerite_log_likelihood_and_grad
+    from mind_the_gaps_tpu_torch.ops import _build
 
     for lib in _build.build("celerite_loglike_f32", "celerite_loglike_f64", "bitonic_sort", "celerite_grad_f64",
                             "fma_chain"):
         print(f"[build] {lib.relative_to(ROOT)}", flush=True)
     phase("build", t0)
+    if args.processes_only:
+        return processes_only(card, args)
 
     # ---- 3. kernels against plain ------------------------------------- #
     t0 = time.perf_counter()
@@ -1222,18 +1531,6 @@ def main(argv=None):
     fit_check(card)
     phase("kernels against plain", t0)
 
-    def reset_counts():
-        celerite_log_likelihood.launches = celerite_log_likelihood.dense_launches = 0
-        celerite_log_likelihood.team_launches = dict.fromkeys(celerite_log_likelihood.team_launches, 0)
-        rank_remap.launches = sort_kv.launches = celerite_log_likelihood_and_grad.launches = 0
-
-    def read_counts():
-        return dict(celerite=celerite_log_likelihood.launches, celerite_dense=celerite_log_likelihood.dense_launches,
-                    celerite_warp=celerite_log_likelihood.team_launches[32],
-                    celerite_split=sum(v for k, v in celerite_log_likelihood.team_launches.items() if k != 32),
-                    rank_remap=rank_remap.launches, sort_kv=sort_kv.launches,
-                    celerite_grad=celerite_log_likelihood_and_grad.launches)
-
     def fit_line(tag, model):
         sec, evals = model.timings["map_fit_s"], model.timings["map_fit_evals"]
         print(f"[{tag}] MAP fit: map_fit_s = {sec:.3f}, {evals} evaluations, {sec / evals * 1e3:.3f} ms an "
@@ -1246,11 +1543,7 @@ def main(argv=None):
     if args.observed_max_steps != 10_000:
         print(f"[main] observed_max_steps cut from 10000 to {args.observed_max_steps}", flush=True)
     reset_counts()
-    res = protassov_lrt(
-        lc, null, alt, nsims=args.nsims, seed=0, observed_max_steps=args.observed_max_steps,
-        observed_walkers=32, sim_max_steps=500, sim_walkers=12, chunk=512, device="cuda",
-    )
-    torch.cuda.synchronize()
+    res = gaussian_lrt(lc, null, alt, args)
     gauss = read_counts()
     for key, sec in res.timings.items():
         print(f"[main] {key} = {sec:.3f}", flush=True)
@@ -1305,7 +1598,7 @@ def main(argv=None):
 
     # ---- 6. tutorial-scale E13 generation ----------------------------- #
     t0 = time.perf_counter()
-    e13_generation_rate(card, torch.device("cuda"))
+    e13_run = e13_generation_rate(card, torch.device("cuda"))
     phase("tutorial-scale E13 generation", t0)
 
     # ---- 7. a fitted mean -------------------------------------------- #
@@ -1389,13 +1682,23 @@ def main(argv=None):
     # ---- 12. the mesh ------------------------------------------------- #
     t0 = time.perf_counter()
     reset_counts()
-    mesh_phase(card, lc, null, alt, res)
+    mesh_run = mesh_phase(card, lc, null, alt, res)
     torch.cuda.synchronize()
     mesh_counts = read_counts()
     print(f"[mesh] launches = {mesh_counts}", flush=True)
     check(mesh_counts["celerite"] > 0, "the mesh phase never launched the celerite kernel")
     check("jax" not in sys.modules, "the port imported jax")
     phase("mesh", t0)
+
+    # ---- 13. processes ------------------------------------------------ #
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
+        ranks_counts, one_mesh_counts = processes_phase(card, lc, null, alt, res, mesh_run, e13_run, Path(tmp),
+                                                        args.nsims)
+    print(f"[processes] launches: the ranks {ranks_counts}, the one-process mesh {one_mesh_counts}", flush=True)
+    check(ranks_counts["celerite"] > 0 and ranks_counts["rank_remap"] > 0 and ranks_counts["sort_kv"] > 0,
+          "the ranks did not launch the celerite and sort kernels")
+    phase("processes", t0)
 
     # ---- summary ------------------------------------------------------ #
     def row(name, route, source, replaces, launches, case, library_ms):
@@ -1406,7 +1709,8 @@ def main(argv=None):
     def named(cases, prefix):
         return next(c for c in cases if c["name"].startswith(prefix))
 
-    paths = (gauss, logn, mean_counts, chain_counts, *cli_counts, sel_counts, fitdev_counts, mesh_counts)
+    paths = (gauss, logn, mean_counts, chain_counts, *cli_counts, sel_counts, fitdev_counts, mesh_counts,
+             ranks_counts, one_mesh_counts)
 
     def launches(key):
         return sum(p[key] for p in paths)
@@ -1420,8 +1724,8 @@ def main(argv=None):
     for c in (grad_alt, obs, cel, dense, remap, srt):
         print(f"[summary] times of the entry: {c['name']}{before_note(c['name'])}", flush=True)
     print("[summary] launches are the sums over the Gaussian, lognormal, fitted-mean, chains=4, CLI (fit, "
-          "simulate, lrt), model-selection, fit_device and mesh paths; the probe's are those of its own entry point "
-          "(fma_probe.probe) "
+          "simulate, lrt), model-selection, fit_device, mesh and processes paths (the ranks summed); the probe's "
+          "are those of its own entry point (fma_probe.probe) "
           "(the celerite entries: its launches with a warp and with 8 lanes per likelihood); the sorts' plain "
           "versions are the library calls (stable torch.sort / argsort with a gather / scatter); the "
           "gradient kernel's plain version is autograd through solver/semiseparable.py on the card", flush=True)

@@ -508,9 +508,12 @@ class GPModelling:
         model's device.  The chain, its log-probabilities and the samples
         equal the unsharded run's bit for bit.  Ignored, with a warning, when
         the leading axis of the walkers (walkers, or chains with ``chains >
-        1``) does not divide into ``mesh.size`` shards."""
+        1``) does not divide into ``mesh.size`` shards.  A mesh of several
+        processes is refused: the observed fits run in one process."""
         if chains < 1:
             raise ValueError("chains must be >= 1")
+        if mesh is not None and mesh.process_count > 1:
+            raise ValueError("derive_posteriors runs in one process; its mesh cannot span processes")
         if seed is not None:
             self._generator = torch.Generator(self.device).manual_seed(int(seed))
         t_start = time.perf_counter()

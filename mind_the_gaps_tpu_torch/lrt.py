@@ -11,7 +11,8 @@ PyTorch port of ``mind_the_gaps_tpu/lrt.py``:
    chains, all (simulation x walker) chains of a chunk in lock-step, each
    half-ensemble update one batched likelihood launch (grouped layout);
    over a mesh (``parallel``) a chunk's rows are cut into blocks, one a
-   card, and each card launches its own;
+   card, and each card launches its own; a mesh may span processes, one a
+   card (``parallel.distributed``);
 4. re-evaluate the refit optima in float64 (per-element layout);
 5. T = -2 (logL_null - logL_alt); the p-value is the tail fraction of the
    simulated T at the observed T (scipy's percentileofscore, kind='rank').
@@ -21,6 +22,7 @@ last chunk and is refit by the same short chains as the simulations.
 """
 from __future__ import annotations
 
+import io
 import math
 import os
 import time
@@ -37,7 +39,15 @@ from mind_the_gaps_tpu_torch.gpmodelling import GPModelling, synchronize
 from mind_the_gaps_tpu_torch.lightcurves import GappyLightcurve
 from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood
 from mind_the_gaps_tpu_torch.ops.celerite import batch_team
-from mind_the_gaps_tpu_torch.parallel import Mesh, default_mesh
+from mind_the_gaps_tpu_torch.parallel import (
+    Mesh,
+    barrier,
+    broadcast_bytes,
+    default_mesh,
+    is_initialized,
+    process_allgather,
+    process_any,
+)
 from mind_the_gaps_tpu_torch.sampler.ensemble import stretch_draws, stretch_half
 from mind_the_gaps_tpu_torch.solver.batched import batched_log_prob_fn
 
@@ -235,17 +245,22 @@ def batched_max_loglike(
       launches its own likelihoods with the layout the whole batch would get
       (``ops.celerite.batch_team``), and the host issues one step of every
       shard before it waits on any of them; the early stop is decided over
-      all shards once a step, so all stop together.
+      all shards once a step (over every process: ``process_any``), so all
+      stop together.
     - "shard_map": shard k is an unsharded run of its rows on its device,
-      from ``generator[k]`` (a sequence of one generator a mesh device, on
-      that device) and with its own early stop, the shards run one after
-      another; the result depends on the mesh (the JAX package's ``fold_in``
-      of the mesh position).
+      from ``generator[k]`` (a sequence of one generator a device of this
+      process's, on that device) and with its own early stop, the shards run
+      one after another; the result depends on the mesh (the JAX package's
+      ``fold_in`` of the mesh position), not on how its positions are spread
+      over processes.
 
-    ``batched_max_loglike.shard_launches`` then holds the likelihood calls
-    of each mesh position (one kernel launch each on a card; one entry
-    without a mesh).  Returns (best_lp (G,), best_x (G, D)) on the device
-    of ``ys``.
+    Over a mesh of several processes (``parallel.process_mesh``) every
+    process passes the same arguments and runs only its own positions'
+    rows; the results are gathered (``process_allgather``), so every process
+    returns all G rows.  ``batched_max_loglike.shard_launches`` then holds
+    the likelihood calls of each of this process's mesh positions (one
+    kernel launch each on a card; one entry without a mesh).  Returns
+    (best_lp (G,), best_x (G, D)) on the device of ``ys``.
     """
     if spmd not in ("gspmd", "shard_map"):
         raise ValueError(f"spmd must be 'gspmd' or 'shard_map', not {spmd!r}")
@@ -259,8 +274,8 @@ def batched_max_loglike(
     half = walkers // 2
     if 2 * half != walkers:
         raise ValueError("walkers must be even")
-    devices = (lead,) if mesh is None else mesh.devices
     team = None if mesh is None else batch_team(kernel, G * half, lead)
+    mesh = Mesh((lead,)) if mesh is None else mesh
     bounds = np.asarray(kernel.get_parameter_bounds(), dtype=np.float64)
     lo = torch.as_tensor(bounds[:, 0], dtype=dtype, device=lead)
     hi = torch.as_tensor(bounds[:, 1], dtype=dtype, device=lead)
@@ -273,13 +288,14 @@ def batched_max_loglike(
     state = torch.minimum(torch.maximum(init, span_lo), span_hi)
     data_means = ys.to(dtype).mean(1)  # over the whole batch, for every shard
 
-    runs, launches = [], [0] * len(devices)  # an empty block has no run and no launches
-    for k, (rows, dev) in enumerate(zip(torch.tensor_split(torch.arange(G), len(devices)), devices)):
-        if len(rows):
-            r = slice(int(rows[0]), int(rows[-1]) + 1)
+    runs, launches = [], [0] * len(mesh.devices)  # an empty block has no run and no launches
+    blocks = torch.tensor_split(torch.arange(G), mesh.size)
+    for i, (k, dev) in enumerate(zip(mesh.local_positions, mesh.devices)):
+        if len(blocks[k]):
+            r = slice(int(blocks[k][0]), int(blocks[k][-1]) + 1)
             log_prob = batched_log_prob_fn(kernel, t.to(dev), ys[r].to(dev), diags[r].to(dev), repeats=half,
                                            dtype=dtype, team=team, data_means=data_means[r].to(dev))
-            runs.append((k, _ShardRun(log_prob, state[r].to(dev), half, r)))
+            runs.append((i, _ShardRun(log_prob, state[r].to(dev), half, r)))
 
     tol = None if early_stop is None else early_stop[0]
     last_imp, step = -1, 0
@@ -287,45 +303,67 @@ def batched_max_loglike(
         u_z, picks, u_acc = stretch_draws(1, (G, half), dtype, lead, generator)
         improved = [run.step(tuple(d[:, :, run.span].to(run.device) for d in (u_z, picks, u_acc)), a, tol)
                     for _, run in runs]
-        if tol is not None and any(bool(x) for x in improved):  # the host waits here, after every shard's step
-            last_imp = step
+        if tol is not None:
+            moved = any(bool(x) for x in improved)  # the host waits here, after every shard's step
+            if mesh.process_count > 1:
+                moved = process_any(moved)
+            if moved:
+                last_imp = step
         step += 1
-    for k, run in runs:
-        launches[k] = run.launches
+    for i, run in runs:
+        launches[i] = run.launches
     batched_max_loglike.shard_launches = launches
-    return (torch.cat([run.best_lp.to(lead) for _, run in runs]),
-            torch.cat([run.best_x.to(lead) for _, run in runs]))
+    return _gathered([run.best_lp for _, run in runs], [run.best_x for _, run in runs], mesh, state)
 
 
 batched_max_loglike.shard_launches = []
 
 
+def _gathered(lps, xs, mesh, like):
+    """The best log-probabilities and optima of this process's shards (lists
+    in position order) concatenated on ``like``'s device, then gathered over
+    the mesh's processes."""
+    lp = torch.cat([v.to(like.device) for v in lps]) if lps else like.new_empty((0,))
+    x = torch.cat([v.to(like.device) for v in xs]) if xs else like.new_empty((0, like.shape[-1]))
+    if mesh.process_count > 1:
+        lp, x = process_allgather(lp), process_allgather(x)
+    return lp, x
+
+
 def _shard_map_max_loglike(kernel, t, ys, diags, theta0, mesh, generators, **kw):
     """``batched_max_loglike``'s "shard_map" mode: an unsharded run of each
-    mesh position's rows on its device from its own generator."""
+    of this process's mesh positions' rows on its device from its own
+    generator, gathered over the processes."""
     generators = list(generators)
-    if len(generators) != mesh.size:
-        raise ValueError(f"shard_map takes one generator a mesh device ({mesh.size}), got {len(generators)}")
+    if len(generators) != len(mesh.devices):
+        raise ValueError(f"shard_map takes one generator a device of this process ({len(mesh.devices)}), "
+                         f"got {len(generators)}")
     theta0 = torch.as_tensor(theta0)
+    blocks = torch.tensor_split(torch.arange(ys.shape[0]), mesh.size)
     lps, xs, launches = [], [], []
-    for rows, dev, gen in zip(torch.tensor_split(torch.arange(ys.shape[0]), mesh.size), mesh.devices, generators):
-        if len(rows) == 0:
+    for k, dev, gen in zip(mesh.local_positions, mesh.devices, generators):
+        if len(blocks[k]) == 0:
             launches.append(0)
             continue
-        r = slice(int(rows[0]), int(rows[-1]) + 1)
+        r = slice(int(blocks[k][0]), int(blocks[k][-1]) + 1)
         lp, x = batched_max_loglike(kernel, t.to(dev), ys[r].to(dev), diags[r].to(dev),
                                     theta0[r] if theta0.dim() == 2 else theta0, generator=gen, **kw)
-        lps.append(lp.to(ys.device))
-        xs.append(x.to(ys.device))
+        lps.append(lp)
+        xs.append(x)
         launches += batched_max_loglike.shard_launches
     batched_max_loglike.shard_launches = launches
-    return torch.cat(lps), torch.cat(xs)
+    dtype = ys.dtype if kw.get("dtype") is None else kw["dtype"]
+    return _gathered(lps, xs, mesh, ys.new_empty((0, kernel.ndim), dtype=dtype))
 
 
 def _node_mesh(device) -> Optional[Mesh]:
-    """The mesh of every visible card when ``device`` is CUDA without a card
-    index and more than one card is visible, else None: a device that names
-    its card keeps the work on that card."""
+    """Under an initialized process group, the mesh of the processes
+    (``default_mesh()``, each rank's own device); else the mesh of every
+    visible card when ``device`` is CUDA without a card index and more than
+    one card is visible, else None: a device that names its card keeps the
+    work on that card."""
+    if is_initialized():
+        return default_mesh()
     device = torch.device(device)
     if device.type == "cuda" and device.index is None and torch.cuda.device_count() > 1:
         return default_mesh()
@@ -348,8 +386,12 @@ def fit_lightcurves_batch(
     with "gspmd" the result is the one-card result bit for bit; with
     "shard_map" shard k of chunk i draws from a generator seeded from
     ``(seed, i, k)`` on its card.  A device that names its card never
-    shards.  Off by default (the JAX package's default is on): over four
-    cards the sharded refits took longer than one card's (PERF.md).
+    shards.  Under an initialized process group the chunks shard over the
+    processes' mesh (``parallel.process_mesh``) whatever the device: each
+    rank holds every row's data and runs the refits of its own rows, and
+    every rank returns the whole result.  Off by default (the JAX package's
+    default is on): over four cards the sharded refits took longer than one
+    card's (PERF.md).
 
     Returns numpy (best_loglikes (B,), best_params (B, D))."""
     device = torch.device(device)
@@ -364,7 +406,7 @@ def fit_lightcurves_batch(
     for ci, s in enumerate(range(0, ys.shape[0], chunk)):
         th0 = theta0[s : s + chunk] if theta0.ndim == 2 else theta0
         if mesh is not None and spmd == "shard_map":
-            gen = [_derived_generator(dev, seed, ci, k) for k, dev in enumerate(mesh.devices)]
+            gen = [_derived_generator(dev, seed, ci, k) for k, dev in zip(mesh.local_positions, mesh.devices)]
         else:
             gen = _derived_generator(device, seed, ci)
         best_lp, best_x = batched_max_loglike(
@@ -375,6 +417,22 @@ def fit_lightcurves_batch(
         lls.append(best_lp.cpu().numpy())
         xs.append(best_x.cpu().numpy())
     return np.concatenate(lls), np.concatenate(xs)
+
+
+def _broadcast_posteriors(model, lightcurve, kernel, device) -> GPModelling:
+    """Rank 0's fitted ``model`` on every rank: its posterior state
+    (``save_posteriors``) broadcast, loaded into a model of ``kernel`` on the
+    other ranks (``model`` None there)."""
+    data = None
+    if model is not None:
+        buf = io.BytesIO()
+        model.save_posteriors(buf)
+        data = buf.getvalue()
+    data = broadcast_bytes(data)
+    if model is None:
+        model = GPModelling(lightcurve, kernel, device=device)
+        model.load_posteriors(io.BytesIO(data))
+    return model
 
 
 def protassov_lrt(
@@ -435,9 +493,20 @@ def protassov_lrt(
     unsharded run's bit for bit, and a checkpoint written on one card
     resumes bit-identically over a mesh.  The observed fits stay on
     ``device``: each is one dependent chain, no faster over more cards
-    (pass models fit with ``derive_posteriors(mesh=)`` to shard them).  One
-    host thread issues every shard's work, and over four cards the sharded
-    run took longer than one card's (PERF.md).
+    (pass models fit with ``derive_posteriors(mesh=)`` to shard them).  Over
+    a mesh of one process, its host thread issues every shard's work, and
+    over four cards that run took longer than one card's (PERF.md).
+
+    Over a mesh of several processes (``parallel.process_mesh()``, one
+    process a card under ``torch.distributed``, each with its own host
+    thread) every rank runs this call with the same arguments.  Rank 0 runs
+    the observed fits that are not given and broadcasts their posterior
+    state (samples, log-probabilities, chain), so every rank holds the same
+    models and t_obs; each chunk is generated in full on every rank's
+    ``device`` from the chunk's generator, and each rank refits only its
+    own rows (the results are gathered); only rank 0 writes the checkpoint,
+    and every rank reads it on resume.  Every rank returns the whole result,
+    equal to the one-device run's bit for bit.
     """
     if nsims < 1:
         raise ValueError("nsims must be >= 1 (the p-value is the tail fraction of the simulated T distribution)")
@@ -451,6 +520,8 @@ def protassov_lrt(
         if progress:
             print(f"[lrt +{time.monotonic() - t_start:7.1f}s] {msg}", flush=True)
 
+    rank = 0 if mesh is None else mesh.process_index
+    spans = mesh is not None and mesh.process_count > 1
     sim_dtype = None if sim_dtype is None else getattr(torch, str(sim_dtype).replace("torch.", ""))
     refine_f64 = sim_dtype is not None and sim_dtype != torch.float64
     timings = {"map_fit_s": 0.0, "observed_sampling_s": 0.0, "generation_s": 0.0,
@@ -458,7 +529,9 @@ def protassov_lrt(
 
     # 1. observed fits
     def observed(model, kernel, model_seed, name):
-        if model is None:
+        if model is not None:
+            return model
+        if rank == 0:
             model = GPModelling(lightcurve, kernel, device=device)
             model.derive_posteriors(
                 seed=model_seed, fit=fit_observed, max_steps=observed_max_steps,
@@ -467,6 +540,8 @@ def protassov_lrt(
             timings["map_fit_s"] += model.timings["map_fit_s"]
             timings["observed_sampling_s"] += model.timings["sampling_s"]
             _mark(f"observed {name} fit done")
+        if spans:
+            model = _broadcast_posteriors(model, lightcurve, kernel, device)
         return model
 
     null_model = observed(null_model, null_kernel, seed + 101, "null")
@@ -503,6 +578,11 @@ def protassov_lrt(
                       device.type, "per-row-starts-v2"),
         )
         chunks_done, null_parts, alt_parts = _read_checkpoint(checkpoint, ckpt_crc)
+        if spans:
+            seen = process_allgather(torch.tensor([chunks_done])).tolist()
+            if len(set(seen)) > 1:
+                raise RuntimeError(f"the ranks read {seen} chunks done from {checkpoint}: every rank must see "
+                                   "the same checkpoint file")
         if chunks_done:
             _mark(f"resuming the bootstrap after chunk {chunks_done}/{n_chunks}")
     for ci in range(chunks_done, n_chunks):
@@ -549,10 +629,13 @@ def protassov_lrt(
 
         if checkpoint is not None:
             clock = time.perf_counter()
-            tmp = checkpoint + ".tmp.npz"
-            np.savez(tmp, config_crc=np.int64(ckpt_crc), chunks_done=np.int64(ci + 1),
-                     null_done=np.concatenate(null_parts), alt_done=np.concatenate(alt_parts))
-            os.replace(tmp, checkpoint)
+            if rank == 0:
+                tmp = checkpoint + ".tmp.npz"
+                np.savez(tmp, config_crc=np.int64(ckpt_crc), chunks_done=np.int64(ci + 1),
+                         null_done=np.concatenate(null_parts), alt_done=np.concatenate(alt_parts))
+                os.replace(tmp, checkpoint)
+            if spans:
+                barrier()
             timings["checkpoint_s"] += time.perf_counter() - clock
         _mark(f"bootstrap chunk {ci + 1}/{n_chunks} done")
 

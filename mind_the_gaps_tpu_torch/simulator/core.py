@@ -39,9 +39,10 @@ import numpy as np
 import torch
 
 from mind_the_gaps_tpu_torch.ops import rank_remap, sort_kv
+from mind_the_gaps_tpu_torch.parallel import process_allgather
 from mind_the_gaps_tpu_torch.simulator.noise import GaussianNoise, KraftNoise, PoissonNoise
 from mind_the_gaps_tpu_torch.simulator.regular import RegularLightcurve
-from mind_the_gaps_tpu_torch.stats import create_log_normal, create_uniform_distribution, sample_pdf
+from mind_the_gaps_tpu_torch.stats import create_log_normal, create_uniform_distribution, sample_pdf, standard_draws
 
 __all__ = [
     "Simulator",
@@ -100,6 +101,15 @@ def _apply_rank_permutation(order, sorted_draws):
     return torch.empty_like(sorted_draws).scatter_(-1, order, sorted_draws)
 
 
+def _row_std(x):
+    """The population std of each row of ``x`` (B, m).  A one-row batch is
+    reduced as two copies of its row: torch's CPU std sums a lone row in
+    another order, and a row's result must not depend on its batch."""
+    if x.shape[0] == 1:
+        return x.expand(2, -1).std(dim=-1, correction=0)[:1]
+    return x.std(dim=-1, correction=0)
+
+
 def e13_adjust_batch(segments, pdf: str, mean, max_iter: int, rtol=1e-4, atol=1e-8,
                      generator: Optional[torch.Generator] = None, draws=None, std=None):
     """Emmanoulopoulos+13 adjustment of a (B, m) chunk of segments, in
@@ -118,7 +128,7 @@ def e13_adjust_batch(segments, pdf: str, mean, max_iter: int, rtol=1e-4, atol=1e
     """
     B, m = segments.shape
     namp = m // 2 + 1
-    sample_std = (segments.std(dim=-1, correction=0) if std is None
+    sample_std = (_row_std(segments) if std is None
                   else torch.as_tensor(std, dtype=torch.float64, device=segments.device))
     xsim = sample_pdf(pdf, mean, sample_std.reshape(-1, 1), (B, m), generator=generator, draws=draws)
     amplitudes_norm = torch.abs(torch.fft.rfft(segments.float(), dim=-1)) / namp
@@ -391,9 +401,15 @@ class Simulator:
             )
         return count
 
+    def _draw_shifts(self, B: int, dtype, device, generator):
+        """The (B,) start times of the cut, uniform over the fine grid."""
+        grid_t0 = float(self.sim_timestamps[0])
+        u = torch.rand((B,), generator=generator, dtype=dtype, device=device)
+        return grid_t0 + u * (float(self.sim_timestamps[-1]) - self.sim_duration - grid_t0)
+
     def simulate_batch(self, psd_values_batch, generator: Optional[torch.Generator] = None,
                        mean=None, normals=None, shifts=None, pdf_draws=None,
-                       chunk: Optional[int] = None, warn_nonconverged: bool = True):
+                       chunk: Optional[int] = None, warn_nonconverged: bool = True, mesh=None):
         """(B, n_freq) PSD values -> (B, n_times) noiseless rates on their
         device.  ``normals`` (B, 2, n_freq), ``shifts`` (B,) in time units
         and, for a non-Gaussian PDF, ``pdf_draws`` (B, cut length) replace
@@ -403,19 +419,35 @@ class Simulator:
         ``chunk`` rows (default ``_e13_chunk_default``).  The count of rows
         that hit ``max_iter`` accumulates on the device and is reported now
         (``warn_nonconverged``) or by a later ``report_nonconverged``; the
-        iteration counts of this batch stay in ``_last_e13_iters``."""
+        iteration counts of this batch stay in ``_last_e13_iters``.
+
+        ``mesh`` (``parallel.Mesh``, which may span processes): the draws of
+        the whole batch are made on the device of the PSDs in the order of
+        the call without a mesh (the normals, the shifts, then each chunk's
+        PDF draws), the rows are cut into ``mesh.size`` blocks, and each of
+        this process's positions runs its block on its device (its own E13
+        loop, in chunks of ``chunk`` of its rows); the rates, iteration counts
+        and non-convergence count are those of the whole batch, gathered on
+        every process.  A row's result does not depend on the other rows of
+        its chunk (a converged row is frozen), so the result is that of the
+        call over a one-process mesh of as many positions, and equals the
+        call without a mesh where the device's transforms and reductions give
+        a row the same bits at the blocks' batch size as at the whole batch's
+        (on the CPU they do; cuFFT's plan for another batch may round
+        otherwise)."""
         psd = torch.as_tensor(psd_values_batch)
+        if mesh is not None:
+            return self._simulate_over_mesh(psd, mesh, generator, mean, normals, shifts, pdf_draws, chunk,
+                                            warn_nonconverged)
         B, device = psd.shape[0], psd.device
         n_fft, dt, m = self.fftndatapoints, self.sim_dt, self._e13_cut_len
         grid_t0 = float(self.sim_timestamps[0])
-        grid_t1 = float(self.sim_timestamps[-1])
         mean_v = float(self.mean if mean is None else mean)
 
         rate = tk95_rates(psd, n_fft, dt, normals=normals, generator=generator)
         rate = rate - rate.mean(dim=-1, keepdim=True) + mean_v
         if shifts is None:
-            u = torch.rand((B,), generator=generator, dtype=rate.dtype, device=device)
-            shifts = grid_t0 + u * (grid_t1 - self.sim_duration - grid_t0)
+            shifts = self._draw_shifts(B, rate.dtype, device, generator)
         k0 = torch.ceil((torch.as_tensor(shifts, dtype=rate.dtype, device=device) - grid_t0) / dt)
         k0 = torch.clamp(k0.to(torch.int64), 0, n_fft - m)
         segment = torch.gather(rate, 1, k0[:, None] + torch.arange(m, device=device)[None, :])
@@ -439,6 +471,53 @@ class Simulator:
         if warn_nonconverged:
             self.report_nonconverged()
         return torch.cat(outs)
+
+    def _simulate_over_mesh(self, psd, mesh, generator, mean, normals, shifts, pdf_draws, chunk, warn_nonconverged):
+        """``simulate_batch`` over ``mesh``: the whole batch's draws on the
+        PSDs' device, this process's blocks on their devices, the results
+        gathered over the processes."""
+        B, lead = psd.shape[0], psd.device
+        e13 = self.pdf.lower() != "gaussian"
+        chunk = self._e13_chunk_default() if chunk is None else chunk
+        if normals is None:
+            normals = torch.randn(psd.shape[:-1] + (2, self.fftndatapoints // 2 + 1), generator=generator,
+                                  dtype=psd.dtype, device=lead)
+        if shifts is None:
+            shifts = self._draw_shifts(B, psd.dtype, lead, generator)
+        if e13 and pdf_draws is None:
+            pdf_draws = torch.cat([
+                standard_draws(self.pdf, (min(chunk, B - s0), self._e13_cut_len), generator, lead)
+                for s0 in range(0, B, chunk)
+            ]) if B else None
+
+        def rows(x, r, dev):
+            return None if x is None else torch.as_tensor(x)[r].to(dev)
+
+        saved = self._nonconv_total
+        blocks = torch.tensor_split(torch.arange(B), mesh.size)
+        outs, iters = [], []
+        for k, dev in zip(mesh.local_positions, mesh.devices):
+            if len(blocks[k]):
+                r = slice(int(blocks[k][0]), int(blocks[k][-1]) + 1)
+                self._nonconv_total = None  # the count is taken from every block's iterations below
+                outs.append(self.simulate_batch(psd[r].to(dev), mean=mean, normals=rows(normals, r, dev),
+                                                shifts=rows(shifts, r, dev), pdf_draws=rows(pdf_draws, r, dev),
+                                                chunk=chunk, warn_nonconverged=False).to(lead))
+                if e13:
+                    iters.append(self._last_e13_iters.to(lead))
+        dtype = torch.float64 if e13 else psd.dtype
+        rates = torch.cat(outs) if outs else torch.empty((0, len(self._times)), dtype=dtype, device=lead)
+        if mesh.process_count > 1:
+            rates = process_allgather(rates)
+        self._nonconv_total = saved
+        if e13:
+            its = torch.cat(iters) if iters else torch.empty((0,), dtype=torch.int32, device=lead)
+            self._last_e13_iters = process_allgather(its) if mesh.process_count > 1 else its
+            count = torch.sum(self._last_e13_iters >= self.max_iter)
+            self._nonconv_total = count if saved is None else saved + count
+            if warn_nonconverged:
+                self.report_nonconverged()
+        return rates
 
     def add_noise_batch(self, rates_batch, generator: Optional[torch.Generator] = None):
         return self.noise.add_noise_torch(rates_batch, generator)

@@ -96,6 +96,13 @@ def create_uniform_distribution(mean, std):
     return uniform(loc=a, scale=b - a)
 
 
+def standard_draws(pdf: str, shape, generator: Optional[torch.Generator] = None, device=None):
+    """The standard float64 draws of ``sample_pdf`` for ``pdf``: uniform on
+    [0, 1) for 'uniform', else standard normal."""
+    draw = torch.rand if pdf.lower() == "uniform" else torch.randn
+    return draw(tuple(shape), generator=generator, dtype=torch.float64, device=device)
+
+
 def sample_pdf(pdf: str, mean, std, shape, generator: Optional[torch.Generator] = None, draws=None):
     """Moment-matched draws of ``shape`` from the flux PDF ``pdf``
     ('gaussian' | 'lognormal' | 'uniform'), matched in mean and std.
@@ -110,8 +117,7 @@ def sample_pdf(pdf: str, mean, std, shape, generator: Optional[torch.Generator] 
         raise ValueError("pdf must be one of 'gaussian', 'lognormal', 'uniform'")
     if draws is None:
         device = std.device if torch.is_tensor(std) else (generator.device if generator is not None else None)
-        draw = torch.rand if pdf == "uniform" else torch.randn
-        draws = draw(tuple(shape), generator=generator, dtype=torch.float64, device=device)
+        draws = standard_draws(pdf, shape, generator, device)
     mean = torch.as_tensor(mean, dtype=draws.dtype, device=draws.device)
     std = torch.as_tensor(std, dtype=draws.dtype, device=draws.device)
     if pdf == "gaussian":
