@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --processes-only   # phases 1, 2, 4, 6, 12 and 13, e.g. on four cards
+    python3 chip_smoke.py --tobs-spread      # phases 1, 2, then phase 4's LRT at seeds 0-7
 
 Phases, each printed with its seconds:
 
@@ -90,7 +91,24 @@ Phases, each printed with its seconds:
    generation equal to this process's over a mesh of as many positions, all
    bit for bit (against phase 6's unsharded call the rows that differ are
    printed: cuFFT may round a row otherwise at another batch).  A rank that
-   fails or does not finish within ``RANKS_TIMEOUT_S`` fails the script.
+   fails or does not finish within ``RANKS_TIMEOUT_S`` fails the script;
+14. validation: the programs of ``mind_the_gaps_tpu_torch.examples`` in
+   this process through their ``run()``, at the JAX scripts' widths
+   (float32 refits, 12 walkers, 300 steps, early stop (0.01, 50)), each
+   check's launches printed: (a) the batched Gaussian p-value calibration
+   at K=32 x 127, n=400, every p in [1/128, 1], failing at a KS p below
+   0.001; (b) the batched lognormal calibration at n=850 (E13 cut 16384, the
+   sort's one-CTA tier), K=16 x 63, with the sort kernels required in both
+   generation stages; (c) the detection-power curve at a = 0, 0.02, 0.05,
+   0.1, 0.25, K=16 x 127, failing below a detection fraction of 0.9 at
+   a = 0.25; (d) four complete Gaussian ``protassov_lrt`` calls of the
+   full-pipeline calibration (p and T_obs finite and in range); (e) the
+   posterior-predictive tutorial with the QPO injected at 255 simulations on
+   the JAX script's seed-42 realization (its Poisson counts, noise seeded
+   42), failing unless p <= 0.01; this card's own seed-42 realization (noise
+   seeded 42) must equal the committed ``h100_seed42`` counts, and its MAP
+   fits' T is printed; (f) the three convention studies with their own
+   assertions.
 
 Phase 3 also holds the latency probe ``ops/fma_probe.py`` (``csrc/fma_chain.cu``,
 dependent multiply-add chains) against its plain version in float32 and
@@ -694,6 +712,8 @@ def sort_cases(card, lc, kernel):
         ("rank_remap (128, 65536) one E13 step, cluster tier", "remap", (adj65, draws65), 20),
         ("rank_remap (128, 65536) planted ties and +-0.0", "remap", (planted(128, 65536), draws65), 20),
         ("rank_remap (512, 8192) tile tier", "remap", (randn(512, 8192), desc(randn(512, 8192))), 20),
+        ("rank_remap (256, 16384) tile tier, phase 14's E13 chunk at n=850", "remap",
+         (randn(256, 16384), desc(randn(256, 16384))), 20),
         ("rank_remap (128, 50011) non-power-of-two", "remap", (adj65[:, :50011].contiguous(),
                                                                 draws65[:, :50011].contiguous()), 20),
         ("sort_kv (128, 65536) f64, the E13 draws", "sort", (-xsim65, xsim65), 32),
@@ -938,20 +958,6 @@ def e13_generation_rate(card, dev, n_points=500, B=256):
     return out, int(torch.sum(sim._last_e13_iters >= sim.max_iter))
 
 
-def tutorial_candidates():
-    """The model-selection tutorial's four candidates and bounds
-    (examples/tutorial_model_selection.py:33-38), in the port."""
-    from mind_the_gaps_tpu_torch.kernels import DampedRandomWalk, Lorentzian, Matern32Term, SHOTerm
-
-    return {
-        "DRW": DampedRandomWalk(0.0, -2.0, bounds=[(-5, 8), (-8, 2)]),
-        "SHO": SHOTerm(0.0, 0.0, -2.0, bounds=[(-5, 8), (-3, 5), (-8, 2)]),
-        "Matern32": Matern32Term(0.0, 2.0, bounds=[(-5, 8), (-2, 8)]),
-        "DRW+QPO": DampedRandomWalk(0.0, -2.0, bounds=[(-5, 8), (-8, 2)])
-        + Lorentzian(-1.0, 2.0, -2.0, bounds=[(-8, 5), (0, 6), (-5, 0)]),
-    }
-
-
 def selection_phase(card, lc, latency, reset_counts, read_counts):
     """Phase 11, model selection: ``compare_models`` with the tutorial's four
     candidates (R = 1, 4, 2, 3) on phase 4's N=5000 data, walkers=24,
@@ -965,11 +971,12 @@ def selection_phase(card, lc, latency, reset_counts, read_counts):
     import numpy as np
     import torch
 
+    from mind_the_gaps_tpu_torch.examples.tutorial_model_selection import candidates
     from mind_the_gaps_tpu_torch.gpmodelling import GPModelling
     from mind_the_gaps_tpu_torch.selection import compare_models
 
     dev = torch.device("cuda")
-    kernels = tutorial_candidates()
+    kernels = candidates()
     reset_counts()
     t0 = time.perf_counter()
     results = compare_models(lc, kernels, max_steps=4000, walkers=24, seed=0, device="cuda")
@@ -1435,13 +1442,133 @@ def rank_main(args):
     shutdown()
 
 
-def gaussian_lrt(lc, null, alt, args):
+def validation_phase(card):
+    """Phase 14, the validation programs (``mind_the_gaps_tpu_torch.examples``)
+    in this process through their ``run()``, at the JAX scripts' widths
+    (float32 refits, 12 walkers, 300 steps, early stop (0.01, 50)).  Returns
+    each check's launch counts."""
+    import numpy as np
+
+    from mind_the_gaps_tpu_torch.examples import (
+        study_celerite_variance,
+        study_lomb_scargle_biases,
+        study_poisson_level,
+        tutorial_ppp,
+        validation_detection_power,
+        validation_full_pipeline_calibration,
+        validation_pvalue_calibration,
+    )
+    from mind_the_gaps_tpu_torch.gpmodelling import GPModelling
+
+    counts = {}
+
+    def counted(label, fn):
+        reset_counts()
+        clock = time.perf_counter()
+        out = fn()
+        counts[label] = read_counts()
+        print(f"[validation] ({label}) {time.perf_counter() - clock:.3f} s, launches {counts[label]} [{card}]",
+              flush=True)
+        return out
+
+    def exact_pvalues(out, nsims, what):
+        p, t = np.asarray(out["p_values"]), np.asarray(out["t_obs"])
+        check(bool(np.all(np.isfinite(t))) and bool(np.all(np.isfinite(out["t_sim"]))), f"{what}: T not finite")
+        check(bool(np.all(p >= 1.0 / (nsims + 1))) and bool(np.all(p <= 1.0)),
+              f"{what}: a p-value outside [1/{nsims + 1}, 1]")
+
+    # (a) the batched Gaussian calibration at PARITY's size
+    a = counted("a", lambda: validation_pvalue_calibration.run(k=32, nsims=127, n=400, device="cuda"))
+    exact_pvalues(a, 127, "(a)")
+    print(f"[validation] (a) Gaussian calibration, K=32 x 127, n=400: KS D = {a['ks_d']:.6f}, p = {a['ks_p']:.6f}; "
+          f"T_obs median {np.median(a['t_obs']):.6f}; p-values {np.round(np.sort(a['p_values']), 4).tolist()} "
+          f"[{card}]", flush=True)
+    check(a["ks_p"] >= 0.001, f"(a) the p-values are not uniform: KS p {a['ks_p']} < 0.001")
+
+    # (b) the batched lognormal calibration at the 16384 cut, the sort kernels required
+    b = counted("b", lambda: validation_pvalue_calibration.run(k=16, nsims=63, n=850, pdf="Lognormal",
+                                                               require_kernel=True, device="cuda"))
+    exact_pvalues(b, 63, "(b)")
+    for label, stage in b["e13"].items():
+        print(f"[validation] (b) {label}: cut {stage['cut_len']}, tier {stage['tier']}, rank_remap launches "
+              f"{stage['rank_remap']}, sort_kv launches {stage['sort_kv']}", flush=True)
+        check(stage["cut_len"] == 16384 and stage["tier"] == ["tile", 1],
+              f"(b) {label}: cut {stage['cut_len']} in tier {stage['tier']}, not 16384 in the one-CTA tier")
+    print(f"[validation] (b) lognormal calibration, K=16 x 63, n=850: KS D = {b['ks_d']:.6f}, p = {b['ks_p']:.6f} "
+          f"[{card}]", flush=True)
+
+    # (c) the power curve at PARITY's strengths
+    amps = (0.0, 0.02, 0.05, 0.1, 0.25)
+    cc = counted("c", lambda: validation_detection_power.run(amps=amps, k=16, nsims=127, device="cuda"))
+    check(bool(np.all(np.isfinite(cc["p_values"]))), "(c) p-values not finite")
+    for r in cc["results"]:
+        print(f"[validation] (c) a = {r['amp']}: detection fraction (p <= 0.05) {r['detect_frac_p05']:.4f}, median p "
+              f"{r['median_p']:.4f}, median T_obs {r['median_T_obs']:.4f} [{card}]", flush=True)
+    top = cc["results"][-1]["detect_frac_p05"]
+    check(top >= 0.9, f"(c) the detection fraction at a = 0.25 is {top} < 0.9")
+
+    # (d) the full pipeline, Gaussian
+    d = counted("d", lambda: validation_full_pipeline_calibration.run(k=4, device="cuda"))
+    p, t = np.asarray(d["p_values"]), np.asarray(d["t_obs"])
+    check(bool(np.all(np.isfinite(t))) and bool(np.all((p >= 0.0) & (p <= 1.0))), "(d) a T_obs or p out of range")
+    print(f"[validation] (d) full pipeline, K=4 x 127: p {p.tolist()}, T_obs {t.tolist()}, observed chains converged "
+          f"(null, alt) {d['converged']}, KS p {d['ks_p']:.6f} [{card}]", flush=True)
+
+    # (e) the tutorial's LRT with the QPO injected, on the JAX script's seed-42 realization (its Poisson counts);
+    # the QPO's power falls in one or two Fourier bins, so a realization may carry little of it: this card's own
+    # seed-42 realization must be the committed one, whose MAP T the tests hold against the JAX package's
+    e = counted("e", lambda: tutorial_ppp.run(nsims=255, qpo=True, device="cuda", counts=tutorial_ppp.reference_counts()))
+    print(f"[validation] (e) tutorial_ppp --qpo on the JAX script's realization, 255 simulations: T_obs "
+          f"{e['t_obs']:.6f} (posterior chain {e['t_obs_posterior']:.6f}), T_dist median {e['t_dist_median']:.6f}, 99th "
+          f"percentile {e['t_dist_p99']:.6f}, p {e['p_value']:.6f}, converged {e['converged']} [{card}]", flush=True)
+    check(math.isfinite(e["t_obs"]) and e["p_value"] <= 0.01, f"(e) the injected QPO not detected: p {e['p_value']}")
+    own = tutorial_ppp.make_lightcurve(with_qpo=True, device="cuda", noise_seed=42)
+    with np.load(tutorial_ppp.COUNTS) as f:
+        check(np.array_equal(own.y, f["h100_seed42"] / tutorial_ppp.EXPOSURE),
+              "(e) this card's seed-42 realization is not the committed h100_seed42")
+    fits = [GPModelling(own, kernel, device="cuda").fit() for kernel in tutorial_ppp.kernels()]
+    print(f"[validation] (e) this card's own seed-42 realization (= h100_seed42): MAP fits' T "
+          f"{2 * (fits[0].fun - fits[1].fun):.6f}, the alternative's QPO at log_Q {fits[1].x[3]:.4f}, log_omega0 "
+          f"{fits[1].x[4]:.4f} (injected: log_omega0 {math.log(2 * math.pi / (10 * tutorial_ppp.DAY)):.4f}) [{card}]",
+          flush=True)
+
+    # (f) the convention studies, with their own assertions
+    for study in (study_celerite_variance, study_poisson_level, study_lomb_scargle_biases):
+        name = study.__name__.rsplit(".", 1)[-1]
+        out = counted(f"f {name}", lambda: study.run(device="cuda"))
+        print(f"[validation] (f) {name}: {out} [{card}]", flush=True)
+    return counts
+
+
+def tobs_spread(card, args):
+    """``--tobs-spread``: phase 4's lrt_512 at seeds 0-7 (each seed moves the
+    observed chains' starts and draws, the generation and the refits); each
+    run's t_obs, p and the observed chains' convergence, then the spread."""
+    import numpy as np
+
+    lc, null, alt = lrt_scenario()
+    rows = []
+    for seed in range(8):
+        t0 = time.perf_counter()
+        res = gaussian_lrt(lc, null, alt, args, seed=seed)
+        rows.append((res.t_obs, res.p_value))
+        print(f"[spread] seed {seed}: t_obs = {res.t_obs:.6f}, p_value = {res.p_value:.6f}, t_obs_posterior = "
+              f"{res.t_obs_posterior:.6f}, null converged = {res.null_model.converged} after "
+              f"{res.null_model.sampler.iteration} steps, alt converged = {res.alt_model.converged} after "
+              f"{res.alt_model.sampler.iteration} steps, {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+        check(math.isfinite(res.t_obs) and 0.0 <= res.p_value <= 1.0, f"seed {seed}: t_obs or p out of range")
+    t = np.array([r[0] for r in rows])
+    print(f"[spread] t_obs over seeds 0-7: min {t.min():.6f}, median {np.median(t):.6f}, max {t.max():.6f}, std "
+          f"{t.std(ddof=1):.6f}; p {[r[1] for r in rows]} [{card}]", flush=True)
+
+
+def gaussian_lrt(lc, null, alt, args, seed=0):
     """Phase 4's run: ``protassov_lrt`` on the lrt_512 scenario on the card."""
     import torch
 
     from mind_the_gaps_tpu_torch.lrt import protassov_lrt
 
-    res = protassov_lrt(lc, null, alt, nsims=args.nsims, seed=0, observed_max_steps=args.observed_max_steps,
+    res = protassov_lrt(lc, null, alt, nsims=args.nsims, seed=seed, observed_max_steps=args.observed_max_steps,
                         observed_walkers=32, sim_max_steps=500, sim_walkers=12, chunk=512, device="cuda")
     torch.cuda.synchronize()
     return res
@@ -1479,6 +1606,9 @@ def main(argv=None):
     ap.add_argument("--workdir", help="phase 13's work directory (with --rank-of)")
     ap.add_argument("--processes-only", action="store_true",
                     help="run phases 1, 2, 4, 6, 12 and 13 only (phase 13 on several cards); prints no ok line")
+    ap.add_argument("--tobs-spread", action="store_true",
+                    help="run phases 1 and 2, then phase 4's lrt_512 at seeds 0-7 (t_obs, p, convergence); prints no "
+                         "ok line")
     args = ap.parse_args(argv)
 
     check((ROOT / "mind_the_gaps_tpu_torch" / "csrc").is_dir(),
@@ -1510,6 +1640,8 @@ def main(argv=None):
     phase("build", t0)
     if args.processes_only:
         return processes_only(card, args)
+    if args.tobs_spread:
+        return tobs_spread(card, args)
 
     # ---- 3. kernels against plain ------------------------------------- #
     t0 = time.perf_counter()
@@ -1700,6 +1832,16 @@ def main(argv=None):
           "the ranks did not launch the celerite and sort kernels")
     phase("processes", t0)
 
+    # ---- 14. validation ----------------------------------------------- #
+    t0 = time.perf_counter()
+    val_counts = validation_phase(card)
+    for key in ("celerite_warp", "celerite_split", "rank_remap", "sort_kv", "celerite_grad"):
+        check(sum(v[key] for v in val_counts.values()) > 0, f"the validation phase never launched {key}")
+    check(val_counts["b"]["rank_remap"] > 0 and val_counts["b"]["sort_kv"] > 0,
+          "the lognormal calibration did not launch the sort kernels")
+    check("jax" not in sys.modules, "the port imported jax")
+    phase("validation", t0)
+
     # ---- summary ------------------------------------------------------ #
     def row(name, route, source, replaces, launches, case, library_ms):
         return {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches,
@@ -1710,7 +1852,7 @@ def main(argv=None):
         return next(c for c in cases if c["name"].startswith(prefix))
 
     paths = (gauss, logn, mean_counts, chain_counts, *cli_counts, sel_counts, fitdev_counts, mesh_counts,
-             ranks_counts, one_mesh_counts)
+             ranks_counts, one_mesh_counts, *val_counts.values())
 
     def launches(key):
         return sum(p[key] for p in paths)
@@ -1724,7 +1866,7 @@ def main(argv=None):
     for c in (grad_alt, obs, cel, dense, remap, srt):
         print(f"[summary] times of the entry: {c['name']}{before_note(c['name'])}", flush=True)
     print("[summary] launches are the sums over the Gaussian, lognormal, fitted-mean, chains=4, CLI (fit, "
-          "simulate, lrt), model-selection, fit_device, mesh and processes paths (the ranks summed); the probe's "
+          "simulate, lrt), model-selection, fit_device, mesh, processes (the ranks summed) and validation paths; the probe's "
           "are those of its own entry point (fma_probe.probe) "
           "(the celerite entries: its launches with a warp and with 8 lanes per likelihood); the sorts' plain "
           "versions are the library calls (stable torch.sort / argsort with a gather / scatter); the "
