@@ -34,6 +34,8 @@ Phases, each printed with its seconds:
    scenario (N=5000 DRW-true data, DRW null, DRW+Lorentzian alternative,
    512 simulations), with the kernels' launch counts over that run and the
    MAP fits' seconds, objective evaluations and milliseconds an evaluation;
+   then its bootstrap again with the JAX package's cumulative-sum
+   downsampling, the T values, t_obs and p that this moves printed;
 5. lognormal main path: the same LRT with ``pdf="Lognormal"`` (E13 cut
    m=65536, lock-step chunks of 128), reusing phase 4's fitted observed
    models, with the E13 iteration counts and the launch counts;
@@ -88,9 +90,12 @@ Phases, each printed with its seconds:
    launches printed: phase 4's full-width bootstrap (its fitted posteriors
    passed through files) whose T distribution, t_obs and p must equal phase
    4's, phase 12's shard_map refits equal to phase 12's, and phase 6's E13
-   generation equal to this process's over a mesh of as many positions, all
-   bit for bit (against phase 6's unsharded call the rows that differ are
-   printed: cuFFT may round a row otherwise at another batch).  A rank that
+   generation equal to this process's over a mesh of as many positions and
+   to phase 6's unsharded call, all bit for bit; each generation step's bits
+   on a block of 128 and 64 rows against those rows of the whole batch are
+   printed, ``downsample_cumsum``'s must be equal, and a transform that
+   rounds a block otherwise (cuFFT's plan for another batch may) is named
+   and lifts the check against phase 6.  A rank that
    fails or does not finish within ``RANKS_TIMEOUT_S`` fails the script;
 14. validation: the programs of ``mind_the_gaps_tpu_torch.examples`` in
    this process through their ``run()``, at the JAX scripts' widths
@@ -108,7 +113,15 @@ Phases, each printed with its seconds:
    42), failing unless p <= 0.01; this card's own seed-42 realization (noise
    seeded 42) must equal the committed ``h100_seed42`` counts, and its MAP
    fits' T is printed; (f) the three convention studies with their own
-   assertions.
+   assertions;
+15. the 10,000-simulation bootstrap: ``examples.lrt_10k.run`` (the JAX
+   repo's ``benchmarks/lrt_10k.py``) on phase 4's fitted observed models,
+   10,000 simulations in 20 chunks of 512 (the last 272 and the observed
+   row), 12 walkers x 500 steps, float32 refits and the float64 refine:
+   10,000 finite T, 0 <= p <= 1, t_obs_posterior equal to phase 4's, both
+   celerite layouts launched (the last chunk's refits with 8 lanes), and
+   a two-sample KS test of phase 4's 512 T against the 10,000 not rejected
+   at p < 0.001 (both are draws of the same null posterior predictive).
 
 Phase 3 also holds the latency probe ``ops/fma_probe.py`` (``csrc/fma_chain.cu``,
 dependent multiply-add chains) against its plain version in float32 and
@@ -378,7 +391,7 @@ def grad_cases(card):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
-    lc, null, alt = lrt_scenario()
+    lc, null, alt = scenario()
     t = torch.as_tensor(lc.times, device=dev)
     y = torch.as_tensor(lc.y, dtype=torch.float64, device=dev)
     diag = torch.as_tensor((lc.dy + 1e-12) ** 2, dtype=torch.float64, device=dev)
@@ -496,7 +509,7 @@ def fit_check(card, n=1000):
 
     from mind_the_gaps_tpu_torch.gpmodelling import GPModelling
 
-    lc, null, alt = lrt_scenario(n)
+    lc, null, alt = scenario(n)
     for name, kernel in (("null", null), ("alt", alt)):
         card_gp, cpu_gp = GPModelling(lc, kernel, device="cuda"), GPModelling(lc, kernel, device="cpu")
         t0 = time.perf_counter()
@@ -884,29 +897,12 @@ def cli_phase(card, lc, workdir, reset_counts, read_counts):
     return fit_counts, sim_counts, lrt_counts
 
 
-def lrt_scenario(n=5000):
-    """The lrt_512 scenario: N=5000, t = cumsum(uniform(2, 8)) from
-    default_rng(0), an exact DRW realization plus noise (dy=0.3, mean 10)."""
-    import numpy as np
+def scenario(n=5000):
+    """The lrt_512 and lrt_10k scenario (``examples.lrt_10k``): N=5000
+    DRW-true data, the DRW null and the DRW + Lorentzian alternative."""
+    from mind_the_gaps_tpu_torch.examples import lrt_10k
 
-    from mind_the_gaps_tpu_torch import GappyLightcurve
-    from mind_the_gaps_tpu_torch.kernels import DampedRandomWalk, Lorentzian
-
-    rng = np.random.default_rng(0)
-    t = np.cumsum(rng.uniform(2.0, 8.0, n))
-    S0, w0 = np.exp(1.0), np.exp(-3.0)
-    y = np.empty(n)
-    y[0] = rng.normal(0.0, np.sqrt(S0))
-    phi = np.exp(-w0 * np.diff(t))
-    innov = rng.normal(0.0, np.sqrt(S0 * (1.0 - phi**2)))
-    for i in range(1, n):
-        y[i] = phi[i - 1] * y[i - 1] + innov[i - 1]
-    dy = np.full(n, 0.3)
-    y = y + 10.0 + rng.normal(0.0, dy)
-    lc = GappyLightcurve(t, y, dy, exposures=1.0)
-    null = DampedRandomWalk(log_S0=1.0, log_omega0=-3.0, bounds=[(-5, 10), (-8, 2)])
-    alt = null + Lorentzian(log_S0=-1.0, log_Q=2.0, log_omega0=-2.0, bounds=[(-8, 5), (0, 6), (-5, 0)])
-    return lc, null, alt
+    return lrt_10k.scenario(n)
 
 
 def e13_problem(dev, n_points=500, B=256):
@@ -1314,7 +1310,7 @@ def processes_phase(card, lc, null, alt, res, mesh_run, e13_run, workdir, nsims)
     check(np.array_equal(out["sm_lp"], mesh_run["sm_lp"]) and np.array_equal(out["sm_x"], mesh_run["sm_x"]),
           f"the shard_map refits across {world} ranks differ from phase 12's over {mesh_run['size']} shards")
     # E13: the ranks against this process over a mesh of as many positions (the same rows a transform), bit for
-    # bit; against phase 6's unsharded call, where cuFFT's plan for another batch may round otherwise, reported
+    # bit; and against phase 6's unsharded call
     sim, psd = e13_problem(dev)
     one_e13 = sim.simulate_batch(psd, generator=torch.Generator(dev).manual_seed(2), mesh=mesh,
                                  warn_nonconverged=False).cpu().numpy()
@@ -1323,32 +1319,43 @@ def processes_phase(card, lc, null, alt, res, mesh_run, e13_run, workdir, nsims)
           f"the E13 generation across {world} ranks differs from this process's over a mesh of {mesh.size}")
     # where a block's rows can round otherwise: each step of the generation on a block of the batch's rows
     # against those rows of the whole batch
-    from mind_the_gaps_tpu_torch.simulator import tk95_rates
+    from mind_the_gaps_tpu_torch.simulator import downsample_cumsum, tk95_rates
 
     normals = torch.randn(psd.shape[:-1] + (2, sim.fftndatapoints // 2 + 1), dtype=psd.dtype, device=dev,
                           generator=torch.Generator(dev).manual_seed(3))
     m = sim._e13_cut_len
+    starts, ends = (torch.as_tensor(w, device=dev) for w in (sim._win_starts, sim._win_ends))
     steps = {
         "TK95 irfft f64": lambda rows: tk95_rates(psd[rows], sim.fftndatapoints, sim.sim_dt, normals=normals[rows]),
         "row mean f64": lambda rows: steps["TK95 irfft f64"](rows).mean(dim=-1),
         "segment std f64": lambda rows: steps["TK95 irfft f64"](rows)[:, :m].std(dim=-1, correction=0),
         "E13 rfft f32": lambda rows: torch.fft.rfft(steps["TK95 irfft f64"](rows)[:, :m].float(), dim=-1),
         "E13 irfft f32": lambda rows: torch.fft.irfft(steps["E13 rfft f32"](rows), n=m, dim=-1),
-        "downsample cumsum f64": lambda rows: torch.cumsum(steps["TK95 irfft f64"](rows)[:, :m], dim=-1),
+        "downsample f64": lambda rows: downsample_cumsum(steps["TK95 irfft f64"](rows)[:, :m], starts, ends),
     }
+    differ = set()
     for block in (128, 64):
         same = {}
         for name, step in steps.items():
             a, b = step(slice(None))[:block], step(slice(0, block))
             same[name] = "equal" if torch.equal(a, b) else f"max |diff| {float((a - b).abs().max()):.3e}"
+            if same[name] != "equal":
+                differ.add(name)
         print(f"[processes] generation steps, a {block}-row batch against those rows of the {psd.shape[0]}-row "
               f"batch: {same} [{card}]", flush=True)
+    check("downsample f64" not in differ, "downsample_cumsum rounds a block of the batch otherwise")
     e13_rates, e13_nonconv = e13_run
     e13_diff = np.abs(out["e13_rates"] - e13_rates.cpu().numpy())
     print(f"[processes] E13 ({len(e13_diff)} rows, {-(-len(e13_diff) // world)} a rank) across {world} ranks: equal "
           f"to this process's over a mesh of {mesh.size} bit for bit; against phase 6's unsharded call "
           f"{int((e13_diff.max(1) > 0).sum())} rows differ, max |diff| {float(e13_diff.max()):.3e}, non-converged "
           f"{int(out['e13_nonconv'])} against {e13_nonconv} [{card}]", flush=True)
+    if differ:  # a transform or reduction of the card that rounds a block otherwise: reported, not gated
+        print(f"[processes] E13 against phase 6's unsharded call not gated: the steps {sorted(differ)} round a block "
+              f"of the batch otherwise [{card}]", flush=True)
+    else:
+        check(np.array_equal(out["e13_rates"], e13_rates.cpu().numpy()) and int(out["e13_nonconv"]) == e13_nonconv,
+              f"the E13 generation across {world} ranks differs from phase 6's unsharded call")
     for rep_ in reports:
         timings = rep_["timings"]
         print(f"[processes] rank {rep_['rank']} of {world} on {rep_['device']}: bootstrap "
@@ -1400,7 +1407,7 @@ def rank_main(args):
         print(f"[rank {rank}] {name}: {report[name + '_s']:.3f} s on {dev}, launches {report[name]}", flush=True)
         return result
 
-    lc, null, alt = lrt_scenario()
+    lc, null, alt = scenario()
     models = []
     for kernel, name in ((null, "null"), (alt, "alt")):
         models.append(GPModelling(lc, kernel, device=dev))
@@ -1540,13 +1547,86 @@ def validation_phase(card):
     return counts
 
 
+def cumsum_bootstrap_moves(card, lc, null, alt, res):
+    """Phase 4's bootstrap again on its fitted models with the JAX package's
+    downsampling (differences of cumulative sums, ``torch.cumsum`` along the
+    row, which on the card rounds a row by its batch) in place of the
+    port's ordered window sums: how many of the T values and which of t_obs
+    and p that choice moves (printed, not gated)."""
+    import numpy as np
+    import torch
+
+    from mind_the_gaps_tpu_torch.lrt import protassov_lrt
+    from mind_the_gaps_tpu_torch.simulator import core
+
+    def by_cumsum(segment_rates, starts, ends):
+        cs = torch.cumsum(segment_rates, dim=-1)
+        cs = torch.cat([torch.zeros_like(cs[..., :1]), cs], dim=-1)
+        return (cs[..., ends] - cs[..., starts]) / (ends - starts).to(segment_rates.dtype)
+
+    ordered, core.downsample_cumsum = core.downsample_cumsum, by_cumsum
+    try:
+        other = protassov_lrt(lc, null, alt, nsims=len(res.t_dist), seed=0, null_model=res.null_model,
+                              alt_model=res.alt_model, sim_max_steps=500, sim_walkers=12, chunk=512, device="cuda")
+    finally:
+        core.downsample_cumsum = ordered
+    diff = np.abs(other.t_dist - res.t_dist)
+    print(f"[main] the bootstrap with cumulative-sum downsampling (the JAX package's): {int(np.sum(diff > 0))} of "
+          f"{len(diff)} T differ, max |diff| {float(diff.max()):.3e}; t_obs {other.t_obs:.6f} ("
+          f"{'equal' if other.t_obs == res.t_obs else 'differs'}), p {other.p_value:.6f} ("
+          f"{'equal' if other.p_value == res.p_value else 'differs'}) [{card}]", flush=True)
+
+
+def lrt_10k_phase(card, res):
+    """Phase 15, the production bootstrap: ``examples.lrt_10k.run`` with
+    10,000 simulations in chunks of 512 (the last 272 + the observed row),
+    12 walkers x 500 steps, float32 refits with the float64 refine, on phase
+    4's fitted observed models (``res``).  Returns its launch counts."""
+    import numpy as np
+    import torch
+    from scipy.stats import ks_2samp
+
+    from mind_the_gaps_tpu_torch.examples import lrt_10k
+    from mind_the_gaps_tpu_torch.ops.celerite import batch_team
+
+    nsims, chunk, walkers = 10_000, 512, 12
+    reset_counts()
+    out = lrt_10k.run(nsims=nsims, chunk=chunk, sim_steps=500, sim_walkers=walkers, pdf="Gaussian", seed=0,
+                      device="cuda", null_model=res.null_model, alt_model=res.alt_model)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    lc, null, alt = scenario()
+    last_rows = nsims + 1 - (out["chunks"] - 1) * chunk
+    lanes = {name: batch_team(k, last_rows * walkers, "cuda") for name, k in (("null", null), ("alt", alt))}
+    t_dist = out["t_dist"]
+    ks = ks_2samp(res.t_dist, t_dist)
+    for key, sec in out["timings"].items():
+        print(f"[lrt_10k] {key} = {sec:.3f}", flush=True)
+    print(f"[lrt_10k] {nsims} simulations in {out['chunks']} chunks of {chunk} (the last {last_rows} rows with the "
+          f"observed one; {last_rows * walkers} likelihoods a refit launch there, lanes {lanes}): {out['value']:.3f} s, "
+          f"t_obs = {out['t_obs']:.6f}, p_value = {out['p_value']:.6f}, t_obs_posterior = "
+          f"{out['t_obs_posterior']:.6f} (phase 4's {res.t_obs_posterior:.6f}), T median {np.median(t_dist):.6f}, "
+          f"99th percentile {np.percentile(t_dist, 99):.6f}; KS against phase 4's {len(res.t_dist)} T: D = "
+          f"{ks.statistic:.6f}, p = {ks.pvalue:.6f}; launches = {counts} [{card}]", flush=True)
+    check(t_dist.shape == (nsims,) and bool(np.all(np.isfinite(t_dist))), "lrt_10k: t_dist not finite")
+    check(0.0 <= out["p_value"] <= 1.0, f"lrt_10k: p-value {out['p_value']} outside [0, 1]")
+    check(out["t_obs_posterior"] == res.t_obs_posterior,
+          "lrt_10k: t_obs_posterior differs from phase 4's (the same observed models)")
+    check(counts["celerite_warp"] > 0 and counts["celerite_split"] > 0,
+          "lrt_10k: the bootstrap did not launch the celerite kernel in both layouts")
+    check(set(lanes.values()) == {8}, f"lrt_10k: the last chunk's refits took lanes {lanes}, not 8")
+    check(ks.pvalue >= 0.001, f"lrt_10k: its T distribution differs from phase 4's (KS p {ks.pvalue} < 0.001)")
+    check("jax" not in sys.modules, "the port imported jax")
+    return counts
+
+
 def tobs_spread(card, args):
     """``--tobs-spread``: phase 4's lrt_512 at seeds 0-7 (each seed moves the
     observed chains' starts and draws, the generation and the refits); each
     run's t_obs, p and the observed chains' convergence, then the spread."""
     import numpy as np
 
-    lc, null, alt = lrt_scenario()
+    lc, null, alt = scenario()
     rows = []
     for seed in range(8):
         t0 = time.perf_counter()
@@ -1579,7 +1659,7 @@ def processes_only(card, args):
     6 and 12), for a run on several cards; no kernel or ``ok`` line."""
     import torch
 
-    lc, null, alt = lrt_scenario()
+    lc, null, alt = scenario()
     t0 = time.perf_counter()
     res = gaussian_lrt(lc, null, alt, args)
     print(f"[main] t_obs = {res.t_obs:.6f}, p_value = {res.p_value:.6f}, timings {res.timings}", flush=True)
@@ -1645,7 +1725,7 @@ def main(argv=None):
 
     # ---- 3. kernels against plain ------------------------------------- #
     t0 = time.perf_counter()
-    lc, null, alt = lrt_scenario()
+    lc, null, alt = scenario()
     grad = grad_cases(card)
     cel_cases = kernel_cases(card)
     srt_cases = sort_cases(card, lc, null)
@@ -1699,6 +1779,7 @@ def main(argv=None):
     check(0.0 <= res.p_value <= 1.0, f"p-value {res.p_value} outside [0, 1]")
     check(math.isfinite(res.t_obs), "t_obs not finite")
     check("jax" not in sys.modules, "the port imported jax")
+    cumsum_bootstrap_moves(card, lc, null, alt, res)
     phase("Gaussian main path", t0)
 
     # ---- 5. lognormal main path --------------------------------------- #
@@ -1842,6 +1923,11 @@ def main(argv=None):
     check("jax" not in sys.modules, "the port imported jax")
     phase("validation", t0)
 
+    # ---- 15. the 10,000-simulation bootstrap -------------------------- #
+    t0 = time.perf_counter()
+    boot_counts = lrt_10k_phase(card, res)
+    phase("10,000-simulation bootstrap", t0)
+
     # ---- summary ------------------------------------------------------ #
     def row(name, route, source, replaces, launches, case, library_ms):
         return {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches,
@@ -1852,7 +1938,7 @@ def main(argv=None):
         return next(c for c in cases if c["name"].startswith(prefix))
 
     paths = (gauss, logn, mean_counts, chain_counts, *cli_counts, sel_counts, fitdev_counts, mesh_counts,
-             ranks_counts, one_mesh_counts, *val_counts.values())
+             ranks_counts, one_mesh_counts, *val_counts.values(), boot_counts)
 
     def launches(key):
         return sum(p[key] for p in paths)
@@ -1866,7 +1952,8 @@ def main(argv=None):
     for c in (grad_alt, obs, cel, dense, remap, srt):
         print(f"[summary] times of the entry: {c['name']}{before_note(c['name'])}", flush=True)
     print("[summary] launches are the sums over the Gaussian, lognormal, fitted-mean, chains=4, CLI (fit, "
-          "simulate, lrt), model-selection, fit_device, mesh, processes (the ranks summed) and validation paths; the probe's "
+          "simulate, lrt), model-selection, fit_device, mesh, processes (the ranks summed), validation and "
+          "10,000-simulation bootstrap paths; the probe's "
           "are those of its own entry point (fma_probe.probe) "
           "(the celerite entries: its launches with a warp and with 8 lanes per likelihood); the sorts' plain "
           "versions are the library calls (stable torch.sort / argsort with a gather / scatter); the "

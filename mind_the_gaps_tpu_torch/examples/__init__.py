@@ -15,7 +15,11 @@ line: ``python -m mind_the_gaps_tpu_torch.examples.<name>``):
 - ``tutorial_model_selection``: AICc and residual KS over four kernels;
 - ``study_celerite_variance``, ``study_poisson_level`` and
   ``study_lomb_scargle_biases``: the convention studies, with their
-  assertions.
+  assertions;
+- ``lrt_10k``: the production scenario, one 10,000-simulation LRT at
+  N=5000, timed (over the process mesh under ``torchrun``);
+- ``make_notebooks``: generates and executes the five tutorial notebooks
+  into ``notebooks/`` (on the CPU; needs nbformat and nbclient).
 
 Nothing runs at import.
 """

@@ -88,11 +88,24 @@ def tk95_rates(psd_values, n_fft: int, dt: float, normals=None, generator: Optio
 
 
 def downsample_cumsum(segment_rates, starts, ends):
-    """Mean of the fine samples in each [start, end) index window, by
-    cumulative sums; ``segment_rates`` (..., M)."""
-    cs = torch.cumsum(segment_rates, dim=-1)
-    cs = torch.cat([torch.zeros_like(cs[..., :1]), cs], dim=-1)
-    return (cs[..., ends] - cs[..., starts]) / (ends - starts).to(segment_rates.dtype)
+    """Mean of the fine samples in each [start, end) index window;
+    ``segment_rates`` (..., M).
+
+    The JAX package takes differences of cumulative sums.  Here each
+    window's samples are added in their order, one elementwise add per
+    offset into the windows (as many as the widest window has samples), so
+    a row's result does not depend on the other rows of the batch: a scan
+    along the row (``torch.cumsum`` on a card) may round a row otherwise
+    at another batch size.  The sum is at least as exact as the
+    differences of the cumulative sums."""
+    width = ends - starts
+    w_max = int(width.max()) if width.numel() else 0
+    last = segment_rates.shape[-1] - 1
+    total = segment_rates.new_zeros(segment_rates.shape[:-1] + starts.shape)
+    for j in range(w_max):
+        sample = segment_rates[..., torch.clamp(starts + j, max=last)]
+        total = total + torch.where(j < width, sample, 0.0)
+    return total / width.to(segment_rates.dtype)
 
 
 def _apply_rank_permutation(order, sorted_draws):
