@@ -40,7 +40,8 @@ Phases, each printed with its seconds:
    m=65536, lock-step chunks of 128), reusing phase 4's fitted observed
    models, with the E13 iteration counts and the launch counts;
 6. tutorial-scale E13 generation: lognormal lightcurves per second at
-   n=500, B=256, cut 8192 (the JAX package's bench.py scenario);
+   n=500, B=256, cut 8192 (``bench.e13_generation_rate``, the JAX repo's
+   bench.py scenario);
 7. a fitted mean: ``derive_posteriors`` of the DRW with a linear mean model
    on the N=5000 data (its MAP fit through the gradient kernel, then the
    sampler's per-walker residuals through the celerite kernel's
@@ -121,7 +122,20 @@ Phases, each printed with its seconds:
    10,000 finite T, 0 <= p <= 1, t_obs_posterior equal to phase 4's, both
    celerite layouts launched (the last chunk's refits with 8 lanes), and
    a two-sample KS test of phase 4's 512 T against the 10,000 not rejected
-   at p < 0.001 (both are draws of the same null posterior predictive).
+   at p < 0.001 (both are draws of the same null posterior predictive);
+16. the bench (``mind_the_gaps_tpu_torch.bench``, the JAX repo's
+   ``bench.py``) at its sizes: the primary metric, 65,536 parameter rows x
+   N=5000 float32 over one shared data column, with the bench's two gates
+   (float32 within 1.0 of float64 on 8 rows; the kernel within 0.5 of its
+   plain version over the whole batch) and its launches (4 + 2 reps); the
+   bootstrap chunk (512 x 12 walkers x 500 steps, early stop (0.01, 50),
+   null and alternative, each model's 512 best log-likelihoods finite) and
+   the 4000-step x 32-walker ``derive_posteriors``; then the kernel on the
+   first 1,024 rows against its plain version (rtol 1e-4, atol 1e-2) and
+   both layouts (32 and 8 lanes) at the primary shape, equal within that
+   tolerance and timed beside the bound and the latency floor.  Phases 4
+   and 6 are the bench's ``lrt_512`` and E13 phases, so they are not run
+   again.
 
 Phase 3 also holds the latency probe ``ops/fma_probe.py`` (``csrc/fma_chain.cu``,
 dependent multiply-add chains) against its plain version in float32 and
@@ -160,10 +174,6 @@ CLI_EXPOSURE, CLI_BKG_RATE, CLI_BKG_RATE_ERR, KRAFT_COUNTS = 1.5, 0.2, 0.02, 15
 # the Gaussian lrt_512's t_obs in every run whose MAP fits ran on the host
 # CPU (PERF.md section 5)
 HOST_FIT_T_OBS = 5.060570
-# the card's published peaks (H100 SXM data sheet, at the 700 W limit):
-# memory, and float32 / float64 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = {4: 67e12, 8: 34e12}
 # The kernels' times before their redesign, quoted from PERF.md section 6
 # (its previous-design column: NVIDIA H100 80GB HBM3 at 700 W; the observed-fit
 # time is the ~2.33 ms derived there), printed beside this run's; keyed by
@@ -227,14 +237,6 @@ def read_counts():
                 celerite_grad=celerite_log_likelihood_and_grad.launches)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def phase(name, t0):
     print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
@@ -254,44 +256,12 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes, n_ops, itemsize):
-    """(bound ms, what sets it): the least time for ``n_bytes`` of memory
-    traffic and ``n_ops`` operations on ``itemsize``-byte floats at the
-    card's peaks."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / OPS_PER_S[itemsize] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def celerite_step_ops(jr, jc, dense=False):
-    """Floating-point operations of one time step of one likelihood in
-    csrc/celerite_loglike.cu, counted from its loops (an exp, log, sin, cos
-    or division counts as one)."""
-    R = jr + 2 * jc
-    row = [1] * jr + [3] * (2 * jc)  # one row of P times a vector: real 1, complex 3
-    s_ops = R * sum(row) if dense else sum(sum(row[i:]) for i in range(R))
-    return (
-        2 * jr + 7 * jc  # propagators
-        + 3 * (R * R if dense else R * (R + 1) // 2)  # M = S + D W W^T
-        + R * sum(row) + s_ops  # P M, then (P M) P^T
-        + R * (2 * R - 1) + 2 * R + 2  # S u, u^T S u, D, 1 / D
-        + 2 * R + sum(row) + 2 * R + 1 + 2 * R  # f, u^T f, z, W
-        + 6  # log|D|, z^2 / D, a tree add for each sum, the pivot test (Kahan: once a chunk)
-    )
-
-
-def celerite_bound(case):
-    """Bound of one celerite launch: each input read once (dt, the data
-    columns, coefficients, mean, jitter), the output written once; the
-    operations of the kernel's recursion."""
-    B, N, jr, jc, cols, item = case["B"], case["N"], case["jr"], case["jc"], case["cols"], case["itemsize"]
-    n_bytes = item * (N + 2 * N * cols + B * (2 * jr + 4 * jc) + 3 * B)
-    return bound(n_bytes, B * (N - 1) * celerite_step_ops(jr, jc, dense=not case["sym"]), item)
-
-
 def sort_bound(case):
     """Bound of one sort launch: each input read once and each output
     written once; one operation per compare-exchange of the bitonic
     network on the padded row."""
+    from mind_the_gaps_tpu_torch.bench import bound
+
     B, m = case["B"], case["m"]
     n = 1 << max(m - 1, 0).bit_length()
     lg = n.bit_length() - 1
@@ -314,6 +284,8 @@ def grad_bound(case):
     """Bound of one gradient launch: t, y, diag, the coefficients, mean and
     jitter read once, the value and every gradient (the (B, N) residual one
     included) written once; the operations of both passes."""
+    from mind_the_gaps_tpu_torch.bench import bound
+
     B, N, jr, jc, y_numel = case["B"], case["N"], case["jr"], case["jc"], case["y_numel"]
     coef = B * (2 * jr + 4 * jc)
     n_bytes = 8 * (2 * N + y_numel + coef + 2 * B + B + coef + B + B * N)
@@ -442,6 +414,7 @@ def probe_cases(card):
     (the JAX probe's type) and the float64 one."""
     import torch
 
+    from mind_the_gaps_tpu_torch.bench import bound
     from mind_the_gaps_tpu_torch.ops.fma_probe import ITERS, fma_chain, fma_chain_plain
 
     dev = torch.device("cuda")
@@ -478,7 +451,7 @@ def probe_entry(card):
     SM; the chain is two dependent FMAs an iteration, so at 1 and 4 warps
     an SM (at most one a scheduler) half an iteration is one FMA's latency.
     Returns (launches, {dtype: latency ns})."""
-    from mind_the_gaps_tpu_torch.ops.fma_probe import fma_chain, probe
+    from mind_the_gaps_tpu_torch.ops.fma_probe import fma_chain, fma_latency_ns, probe
 
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                             capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -486,13 +459,10 @@ def probe_entry(card):
     rows = probe()
     launches = fma_chain.launches
     check(launches > 0, "the probe's entry point never launched the probe kernel")
-    latency = {}
     for r in rows:
         print(f"[probe] {r['dtype']} n={r['n']} threads={r['threads']} warps/SM={r['warps_per_sm']}: "
               f"{r['ms']:.4f} ms, {r['ns_per_iter']:.4f} ns an iteration [{card}]", flush=True)
-        if r["warps_per_sm"] in (1, 4):
-            latency.setdefault(r["dtype"], []).append(r["ns_per_iter"] / 2)
-    latency = {k: min(v) for k, v in latency.items()}
+    latency = fma_latency_ns(rows)
     print(f"[probe] dependent FMA latency: float32 {latency['float32']:.4f} ns, float64 {latency['float64']:.4f} ns "
           f"(SM clock now, max: {clocks}); {launches} launches [{card}]", flush=True)
     return launches, latency
@@ -535,6 +505,7 @@ def kernel_cases(card):
     import numpy as np
     import torch
 
+    from mind_the_gaps_tpu_torch.bench import celerite_bound
     from mind_the_gaps_tpu_torch.kernels import DampedRandomWalk, Lorentzian, RealTerm
     from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood, celerite_log_likelihood_plain
     from mind_the_gaps_tpu_torch.ops.celerite import TEAMS, _launch, team_size
@@ -769,25 +740,6 @@ def sort_cases(card, lc, kernel):
     return results
 
 
-def chain_depth(jr, jc):
-    """Dependent operations on one step's chain of the celerite recursion
-    (csrc/celerite_loglike.cuh, phase B), counting each multiply-add, and
-    the reciprocal, as one: W = (v - S u) / D, D W, M = S + D W W^T, P M and
-    (P M) P^T (one deep for real terms, two with a complex pair), S u and
-    u^T S u (R deep each), D = A - u^T S u, 1 / D.  A lower bound: the
-    reciprocal is a sequence of several."""
-    R = jr + 2 * jc
-    return 2 * R + 5 + 2 * (2 if jc else 1)
-
-
-def latency_floor_ms(case, latency_ns, passes=1):
-    """The least time a launch's chains can take at the measured latency
-    of one dependent multiply-add: (N - 1) steps of ``chain_depth``, once
-    for the forward kernel, twice (forward and adjoint, the adjoint at
-    least as deep) for the gradient kernel."""
-    return passes * (case["N"] - 1) * chain_depth(case["jr"], case["jc"]) * latency_ns * 1e-6
-
-
 def cli_phase(card, lc, workdir, reset_counts, read_counts):
     """Phase 10: the CLI end to end on a lightcurve file at N=5000, then the
     checkpoint resume check; returns the launch counts of the three
@@ -905,52 +857,24 @@ def scenario(n=5000):
     return lrt_10k.scenario(n)
 
 
-def e13_problem(dev, n_points=500, B=256):
-    """Phase 6's problem on ``dev``: the simulator of the tutorial-scale
-    segment (~6.6k fine samples -> the 8192 power-of-two cut; the scenario
-    of the JAX package's bench.py) and ``B`` DRW PSDs (B, n_freq)."""
-    import numpy as np
-    import torch
-
-    from mind_the_gaps_tpu_torch.kernels import DampedRandomWalk
-    from mind_the_gaps_tpu_torch.simulator import Simulator
-
-    rng = np.random.default_rng(0)
-    t = np.cumsum(rng.uniform(4.0, 9.0, n_points))
-    kernel = DampedRandomWalk(log_S0=1.0, log_omega0=-3.0)
-    theta0 = kernel.get_parameter_vector()
-    sim = Simulator(kernel.get_psd, t, exposures=1.0, mean=10.0, pdf="lognormal", extension_factor=2,
-                    max_iter=400, device=dev)
-    check(sim._e13_cut_len == 8192, f"tutorial-scale cut is {sim._e13_cut_len}, not 8192")
-    omega = torch.as_tensor(sim.omega[1:], dtype=torch.float64, device=dev)
-    thetas = torch.as_tensor(theta0[None, :] + 0.15 * rng.standard_normal((B, 2)), device=dev)
-    psd = kernel.get_psd(omega, thetas)
-    return sim, torch.cat([psd.new_zeros((B, 1)), psd], dim=1)
-
-
 def e13_generation_rate(card, dev, n_points=500, B=256):
-    """Phase 6: lognormal (E13) generation of ``e13_problem`` on ``dev``;
-    returns the rates of the timed call (generator seed 2) and its count of
-    rows that hit max_iter."""
+    """Phase 6: the bench's lognormal (E13) generation
+    (``bench.e13_generation_rate``: the tutorial-scale segment, cut 8192) on
+    ``dev``; returns the rates of the timed call (generator seed 2) and its
+    count of rows that hit max_iter."""
     import torch
 
-    from mind_the_gaps_tpu_torch.gpmodelling import synchronize
-    from mind_the_gaps_tpu_torch.ops import rank_remap
+    from mind_the_gaps_tpu_torch import bench
 
-    sim, psd = e13_problem(dev, n_points, B)
-    sim.simulate_batch(psd, generator=torch.Generator(dev).manual_seed(1))  # warm-up
-    synchronize(dev)
-    launches = rank_remap.launches
-    start = time.perf_counter()
-    out = sim.simulate_batch(psd, generator=torch.Generator(dev).manual_seed(2))
-    synchronize(dev)
-    elapsed = time.perf_counter() - start
+    run = bench.e13_generation_rate(n_points, B, device=dev)
+    sim, out, elapsed = run["e13_simulator"], run["e13_rates"], run["e13_seconds"]
+    check(sim._e13_cut_len == 8192, f"tutorial-scale cut is {sim._e13_cut_len}, not 8192")
     iters = sim._last_e13_iters.float()
     check(out.shape == (B, n_points) and bool(torch.all(torch.isfinite(out))) and bool(torch.all(out > 0)),
           "E13 generation: rates not finite and positive")
     print(f"[e13] lognormal generation n={n_points}, B={B}, cut {sim._e13_cut_len}: {elapsed:.4f} s, "
-          f"{B / elapsed:.1f} lightcurves/s, E13 iterations mean {float(iters.mean()):.1f} "
-          f"max {int(iters.max())}, remap launches {rank_remap.launches - launches} [{card}]", flush=True)
+          f"{run['e13_lognormal_lcs_per_sec']:.1f} lightcurves/s, E13 iterations mean {float(iters.mean()):.1f} "
+          f"max {int(iters.max())}, remap launches {run['e13_remap_launches']} [{card}]", flush=True)
     return out, int(torch.sum(sim._last_e13_iters >= sim.max_iter))
 
 
@@ -967,6 +891,7 @@ def selection_phase(card, lc, latency, reset_counts, read_counts):
     import numpy as np
     import torch
 
+    from mind_the_gaps_tpu_torch import bench
     from mind_the_gaps_tpu_torch.examples.tutorial_model_selection import candidates
     from mind_the_gaps_tpu_torch.gpmodelling import GPModelling
     from mind_the_gaps_tpu_torch.selection import compare_models
@@ -1019,9 +944,9 @@ def selection_phase(card, lc, latency, reset_counts, read_counts):
                  mean=torch.full((1,), float(lc.mean), dtype=torch.float64, device=dev))
         jr, jc = widths[name]
         case = grad_case(card, f"{name} MAP-fit shape: B=1 N=5000 R={jr + 2 * jc}", a)
-        case["floor_ms"] = latency_floor_ms(case, latency["float64"], 2)
+        case["floor_ms"] = bench.latency_floor_ms(case, latency["float64"], 2)
         print(f"[floor] celerite_grad {case['name']}: latency floor {case['floor_ms']:.4f} ms (chain depth "
-              f"{chain_depth(jr, jc)}), kernel {case['ms']:.3f} ms = {case['ms'] / case['floor_ms']:.2f}x the floor "
+              f"{bench.chain_depth(jr, jc)}), kernel {case['ms']:.3f} ms = {case['ms'] / case['floor_ms']:.2f}x the floor "
               f"[{card}]", flush=True)
         cases.append(case)
     return counts, cases
@@ -1239,6 +1164,7 @@ def processes_phase(card, lc, null, alt, res, mesh_run, e13_run, workdir, nsims)
     import numpy as np
     import torch
 
+    from mind_the_gaps_tpu_torch import bench
     from mind_the_gaps_tpu_torch.lrt import protassov_lrt
     from mind_the_gaps_tpu_torch.parallel import Mesh, default_mesh
 
@@ -1311,7 +1237,7 @@ def processes_phase(card, lc, null, alt, res, mesh_run, e13_run, workdir, nsims)
           f"the shard_map refits across {world} ranks differ from phase 12's over {mesh_run['size']} shards")
     # E13: the ranks against this process over a mesh of as many positions (the same rows a transform), bit for
     # bit; and against phase 6's unsharded call
-    sim, psd = e13_problem(dev)
+    sim, psd = bench.e13_problem(dev)
     one_e13 = sim.simulate_batch(psd, generator=torch.Generator(dev).manual_seed(2), mesh=mesh,
                                  warn_nonconverged=False).cpu().numpy()
     one_nonconv = sim.report_nonconverged(warn=False)
@@ -1383,6 +1309,7 @@ def rank_main(args):
     import numpy as np
     import torch
 
+    from mind_the_gaps_tpu_torch import bench
     from mind_the_gaps_tpu_torch.gpmodelling import GPModelling
     from mind_the_gaps_tpu_torch.lrt import _derived_generator, batched_max_loglike, protassov_lrt
     from mind_the_gaps_tpu_torch.parallel import initialize, process_any, process_mesh, shutdown
@@ -1424,7 +1351,7 @@ def rank_main(args):
         alt, t64, rates, diags, starts, walkers=12, n_steps=500, dtype=torch.float32, early_stop=(0.01, 50),
         generator=gens, mesh=mesh, spmd="shard_map"))
 
-    sim, psd = e13_problem(dev)
+    sim, psd = bench.e13_problem(dev)
     e13 = timed("e13", lambda: sim.simulate_batch(psd, generator=torch.Generator(dev).manual_seed(2), mesh=mesh,
                                                   warn_nonconverged=False))
     nonconv = sim.report_nonconverged(warn=False)
@@ -1620,6 +1547,81 @@ def lrt_10k_phase(card, res):
     return counts
 
 
+def bench_phase(card, latency):
+    """Phase 16, the port's bench (``mind_the_gaps_tpu_torch.bench``, the JAX
+    repo's ``bench.py``) at its sizes: the primary metric (65,536 rows x
+    N=5000, float32, one shared data column, with the bench's two gates), the
+    bootstrap chunk (512 x 12 walkers x 500 steps, null and alternative) and
+    the 4000-step x 32-walker ``derive_posteriors``; returns their launch
+    counts.  Then, outside the count: the kernel's values on the first 1,024
+    rows against its plain version (rtol 1e-4, atol 1e-2), and both layouts
+    (32 and 8 lanes a likelihood, ``ops.celerite._launch``) at the primary
+    shape, equal within that tolerance, each timed beside the bound and the
+    latency floor (``latency``: phase 3's dependent-FMA ns)."""
+    import torch
+
+    from mind_the_gaps_tpu_torch import bench
+    from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood_plain
+    from mind_the_gaps_tpu_torch.ops.celerite import TEAMS, _launch
+
+    t, y, diag, kernel = bench.data()
+    reps = 4
+    reset_counts()
+    clock = time.perf_counter()
+    prim = bench.primary(t, y, diag, kernel, reps=reps, device="cuda", latency_ns=latency["float32"])
+    prim_s = time.perf_counter() - clock
+    boot = bench.bootstrap_chunk_seconds(t, y, diag, device="cuda")
+    dp = bench.derive_posteriors_seconds(t, y, diag, device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    B = prim["thetas"].shape[0]
+    print(f"[bench] primary: {prim['value']:.1f} evals/s ({prim['metric']}), vs_baseline {prim['vs_baseline']:.2f}; "
+          f"a sweep of {B} rows {prim['sweep_ms']:.3f} ms, the kernel alone {prim['kernel_ms']:.3f} ms a launch "
+          f"(L={prim['team']}; glue {1 - prim['kernel_ms'] / prim['sweep_ms']:.1%} of the sweep), bound "
+          f"{prim['bound_ms']:.4f} ms ({prim['bound_by']}), latency floor {prim['latency_floor_ms']:.4f} ms; plain "
+          f"version {prim['plain_ms']:.1f} ms; gate 1 (f32 within 1.0 of f64, 8 rows) max |diff| "
+          f"{prim['gate_f32_f64_max_abs_err']:.3e}, gate 2 (kernel within 0.5 of plain, {B} rows) "
+          f"{prim['gate_kernel_plain_max_abs_err']:.3e}; {prim['launches']} launches, {prim_s:.3f} s [{card}]",
+          flush=True)
+    print(f"[bench] bootstrap chunk ({boot['bootstrap_chunk_sims']} x {boot['bootstrap_walkers']} walkers x "
+          f"{boot['bootstrap_steps']} steps, early stop {boot['bootstrap_early_stop']}): null "
+          f"{boot['bootstrap_chunk_seconds_null']:.3f} s in {boot['bootstrap_steps_run_null']} steps, alt "
+          f"{boot['bootstrap_chunk_seconds_alt']:.3f} s in {boot['bootstrap_steps_run_alt']} steps; scaled to 10,000 "
+          f"simulations {boot['bootstrap_10k_seconds']:.3f} s [{card}]", flush=True)
+    print(f"[bench] derive_posteriors {dp['derive_posteriors_walkers']} walkers x {dp['derive_posteriors_steps']} "
+          f"steps (converge=False, float64): {dp['derive_posteriors_4k_seconds']:.3f} s, "
+          f"{dp['derive_posteriors_launches']} launches [{card}]", flush=True)
+    print(f"[bench] launches = {counts}", flush=True)
+    check(prim["value"] > 0, "bench: the primary metric is not positive")
+    check(prim["launches"] == 4 + 2 * reps,
+          f"bench: the primary launched the kernel {prim['launches']} times, not {4 + 2 * reps}")
+    for name, lls in boot["bootstrap_best_loglikes"].items():
+        check(lls.shape == (512,) and bool(torch.isfinite(lls).all()),
+              f"bench: the bootstrap chunk's {name} best log-likelihoods are not 512 finite values")
+    check(counts["celerite"] > 0, "bench: the celerite kernel never launched")
+
+    data32 = tuple(torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (t, y, diag))
+    rows = prim["thetas"][:1024]
+    ref = celerite_log_likelihood_plain(kernel.coefficients(rows), *data32).double()
+    err = (prim["out"][:1024].double() - ref).abs()
+    print(f"[bench] kernel against plain, first 1,024 rows: max_abs_err={float(err.max()):.3e} (rtol 1e-4, atol "
+          "1e-2)", flush=True)
+    check(bool((err <= 1e-2 + 1e-4 * ref.abs()).all()), "bench: the kernel disagrees with its plain version")
+    coeffs = kernel.coefficients(prim["thetas"])
+    floor_ms = prim["latency_floor_ms"]
+    outs = {team: _launch(coeffs, *data32, team=team).double() for team in TEAMS}
+    for team in TEAMS:
+        check(bool(((outs[team] - outs[32]).abs() <= 1e-2 + 1e-4 * outs[32].abs()).all()),
+              f"bench: the layouts disagree at the primary shape (L={team})")
+        ms = cuda_ms(lambda: _launch(coeffs, *data32, team=team), reps=5)
+        print(f"[layout] bench primary, shared column R=3 float32 B={B} "
+              f"({B / torch.cuda.get_device_properties(0).multi_processor_count:.1f} per SM): L={team} {ms:.3f} ms, "
+              f"{B / ms * 1e3:.1f} evals/s, bound {prim['bound_ms']:.4f} ms ({prim['bound_by']}), latency floor {floor_ms:.4f} ms "
+              f"({ms / floor_ms:.2f}x), rule L={prim['team']} [{card}]", flush=True)
+    check("jax" not in sys.modules, "the port imported jax")
+    return counts
+
+
 def tobs_spread(card, args):
     """``--tobs-spread``: phase 4's lrt_512 at seeds 0-7 (each seed moves the
     observed chains' starts and draws, the generation and the refits); each
@@ -1699,10 +1701,12 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from mind_the_gaps_tpu_torch import bench
+
     # ---- 1. device ---------------------------------------------------- #
     t0 = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke test runs on the card only")
-    card = card_line()
+    card = bench.device_line("cuda")
     print(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1732,14 +1736,14 @@ def main(argv=None):
     probe32 = probe_cases(card)[0]
     probe_launches, latency = probe_entry(card)
     for c in grad:
-        c["floor_ms"] = latency_floor_ms(c, latency["float64"], 2)
+        c["floor_ms"] = bench.latency_floor_ms(c, latency["float64"], 2)
         print(f"[floor] celerite_grad {c['name']}: latency floor {c['floor_ms']:.4f} ms (forward + adjoint chains "
-              f"of depth {chain_depth(c['jr'], c['jc'])} at {latency['float64']:.4f} ns a dependent FMA), kernel "
+              f"of depth {bench.chain_depth(c['jr'], c['jc'])} at {latency['float64']:.4f} ns a dependent FMA), kernel "
               f"{c['ms']:.3f} ms = {c['ms'] / c['floor_ms']:.2f}x the floor [{card}]", flush=True)
     for c in cel_cases:
         lat = latency["float64" if c["itemsize"] == 8 else "float32"]
-        print(f"[floor] celerite {c['name']}: latency floor {latency_floor_ms(c, lat):.4f} ms (chain depth "
-              f"{chain_depth(c['jr'], c['jc'])} at {lat:.4f} ns), kernel {c['ms']:.3f} ms [{card}]", flush=True)
+        print(f"[floor] celerite {c['name']}: latency floor {bench.latency_floor_ms(c, lat):.4f} ms (chain depth "
+              f"{bench.chain_depth(c['jr'], c['jc'])} at {lat:.4f} ns), kernel {c['ms']:.3f} ms [{card}]", flush=True)
     fit_check(card)
     phase("kernels against plain", t0)
 
@@ -1928,6 +1932,11 @@ def main(argv=None):
     boot_counts = lrt_10k_phase(card, res)
     phase("10,000-simulation bootstrap", t0)
 
+    # ---- 16. the bench ---------------------------------------------- #
+    t0 = time.perf_counter()
+    bench_counts = bench_phase(card, latency)
+    phase("bench", t0)
+
     # ---- summary ------------------------------------------------------ #
     def row(name, route, source, replaces, launches, case, library_ms):
         return {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches,
@@ -1938,7 +1947,7 @@ def main(argv=None):
         return next(c for c in cases if c["name"].startswith(prefix))
 
     paths = (gauss, logn, mean_counts, chain_counts, *cli_counts, sel_counts, fitdev_counts, mesh_counts,
-             ranks_counts, one_mesh_counts, *val_counts.values(), boot_counts)
+             ranks_counts, one_mesh_counts, *val_counts.values(), boot_counts, bench_counts)
 
     def launches(key):
         return sum(p[key] for p in paths)
@@ -1952,8 +1961,8 @@ def main(argv=None):
     for c in (grad_alt, obs, cel, dense, remap, srt):
         print(f"[summary] times of the entry: {c['name']}{before_note(c['name'])}", flush=True)
     print("[summary] launches are the sums over the Gaussian, lognormal, fitted-mean, chains=4, CLI (fit, "
-          "simulate, lrt), model-selection, fit_device, mesh, processes (the ranks summed), validation and "
-          "10,000-simulation bootstrap paths; the probe's "
+          "simulate, lrt), model-selection, fit_device, mesh, processes (the ranks summed), validation, "
+          "10,000-simulation bootstrap and bench paths (the bench's gates included); the probe's "
           "are those of its own entry point (fma_probe.probe) "
           "(the celerite entries: its launches with a warp and with 8 lanes per likelihood); the sorts' plain "
           "versions are the library calls (stable torch.sort / argsort with a gather / scatter); the "

@@ -37,7 +37,7 @@ import torch
 
 from mind_the_gaps_tpu_torch.ops._build import device_scope, load_library, stream_handle
 
-__all__ = ["fma_chain", "fma_chain_plain", "block_threads", "probe", "ITERS", "WARPS_PER_SM"]
+__all__ = ["fma_chain", "fma_chain_plain", "block_threads", "probe", "fma_latency_ns", "ITERS", "WARPS_PER_SM"]
 
 ITERS = 20000  # sublane_probe.py's iteration count
 JAX_COUNTS = (2048, 16384)  # sublane_probe.py's element counts
@@ -128,6 +128,17 @@ def probe(iters: int = ITERS, reps: int = 10, device="cuda"):
                              warps_per_sm=threads // 32 * -(-blocks // sm_count), ms=ms,
                              ns_per_iter=ms * 1e6 / max(iters, 1)))
     return rows
+
+
+def fma_latency_ns(rows):
+    """{dtype: nanoseconds of one dependent multiply-add} from ``probe``'s
+    rows: half an iteration at 1 and 4 warps an SM (at most one warp a
+    scheduler), the least of those rows."""
+    latency = {}
+    for r in rows:
+        if r["warps_per_sm"] in (1, 4):
+            latency.setdefault(r["dtype"], []).append(r["ns_per_iter"] / 2)
+    return {k: min(v) for k, v in latency.items()}
 
 
 def main(argv=None):

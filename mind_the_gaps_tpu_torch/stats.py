@@ -11,7 +11,8 @@ PyTorch port of ``mind_the_gaps_tpu/stats.py``:
 - ``sample_pdf``: moment-matched draws of the target flux PDF on tensors,
   from a ``torch.Generator`` or from given standard draws (normals for the
   lognormal and the Gaussian, uniforms on [0, 1) for the uniform), so a
-  test can give both packages the same random numbers;
+  test can give both packages the same random numbers; drawn on the card
+  unless a tensor ``std``, a generator or ``device="cpu"`` says otherwise;
 - the Kraft, Burrows & Nousek (1991) posterior median
   (``kraft_posterior_median``) and 68% highest-density interval
   (``kraft_hpd_interval``) on float64 tensors (the card unless the caller
@@ -98,25 +99,33 @@ def create_uniform_distribution(mean, std):
 
 def standard_draws(pdf: str, shape, generator: Optional[torch.Generator] = None, device=None):
     """The standard float64 draws of ``sample_pdf`` for ``pdf``: uniform on
-    [0, 1) for 'uniform', else standard normal."""
+    [0, 1) for 'uniform', else standard normal; on ``device``, by default
+    the generator's, or the card without a generator."""
     draw = torch.rand if pdf.lower() == "uniform" else torch.randn
+    if device is None:
+        device = generator.device if generator is not None else "cuda"
     return draw(tuple(shape), generator=generator, dtype=torch.float64, device=device)
 
 
-def sample_pdf(pdf: str, mean, std, shape, generator: Optional[torch.Generator] = None, draws=None):
+def sample_pdf(pdf: str, mean, std, shape, generator: Optional[torch.Generator] = None, draws=None,
+               device="cuda"):
     """Moment-matched draws of ``shape`` from the flux PDF ``pdf``
     ('gaussian' | 'lognormal' | 'uniform'), matched in mean and std.
 
     ``mean`` and ``std`` are floats or tensors that broadcast against
     ``shape`` (per-row values as (B, 1)).  ``draws`` replaces the standard
     draws from ``generator``; without it they are float64 on ``std``'s
-    device when ``std`` is a tensor, else on the generator's device.
+    device when ``std`` is a tensor, else on the generator's device, else
+    on ``device`` (the card unless the caller asks for the CPU).
     """
     pdf = pdf.lower()
     if pdf not in ("gaussian", "lognormal", "uniform"):
         raise ValueError("pdf must be one of 'gaussian', 'lognormal', 'uniform'")
     if draws is None:
-        device = std.device if torch.is_tensor(std) else (generator.device if generator is not None else None)
+        if torch.is_tensor(std):
+            device = std.device
+        elif generator is not None:
+            device = generator.device
         draws = standard_draws(pdf, shape, generator, device)
     mean = torch.as_tensor(mean, dtype=draws.dtype, device=draws.device)
     std = torch.as_tensor(std, dtype=draws.dtype, device=draws.device)

@@ -77,6 +77,29 @@ def test_sample_pdf_matches_jax(pdf):
         sample_pdf("cauchy", MEAN, 1.0, (3,))
 
 
+@pytest.mark.parametrize("pdf", ["gaussian", "lognormal", "uniform"])
+def test_sample_pdf_draws_on_the_card_unless_told(monkeypatch, pdf):
+    """A float ``std`` with no generator and no draws draws on the card (the
+    draw function sees ``device="cuda"``); ``device="cpu"`` draws on the
+    CPU, and a tensor ``std`` or a generator still sets the device."""
+    name = "rand" if pdf == "uniform" else "randn"
+    draw, seen = getattr(torch, name), []
+
+    def recorded(*args, device=None, **kwargs):
+        seen.append(str(device))
+        return draw(*args, device="cpu", **kwargs)
+
+    monkeypatch.setattr(torch, name, recorded)
+    sample_pdf(pdf, MEAN, 2.0, (4, 5))
+    assert seen == ["cuda"]
+    monkeypatch.setattr(torch, name, draw)
+    out = sample_pdf(pdf, MEAN, 2.0, (4, 5), device="cpu")
+    assert out.device.type == "cpu" and out.shape == (4, 5) and out.dtype == torch.float64
+    assert torch.all(torch.isfinite(out))
+    assert sample_pdf(pdf, MEAN, torch.full((4, 1), 2.0), (4, 5)).device.type == "cpu"
+    assert sample_pdf(pdf, MEAN, 2.0, (4, 5), generator=torch.Generator().manual_seed(0)).device.type == "cpu"
+
+
 def _e13_pair(pdf, max_iter, B=6, m=512, seed=0):
     segs = MEAN + 2.0 * np.random.default_rng(seed).standard_normal((B, m))
     keys = jax.random.split(jax.random.key(3 + seed), B)
