@@ -22,12 +22,16 @@ Phases, each printed with its seconds:
    bodies, every layout, the compile-time widths up to R = 8 and the
    runtime-R body), ``rank_remap`` and ``sort_kv`` (the CUDA kernels, every
    tier and its edges) against their plain PyTorch versions on the same
-   tensors on the card, at the shapes of the main paths, each with both
+   tensors on the card, at the shapes of the main paths and the bench's
+   primary (65,536 rows, where the one-thread layout runs; the rows whose
+   bits differ from the 8-lane layout's printed), each with both
    times from CUDA events and, where PERF.md has one, the time before the
    redesign of the hand-written kernels (PERF.md section 6); the sorts
-   must be equal to their plain versions (``torch.equal``); then the two
-   celerite layouts (32 or 8 lanes per likelihood) timed at the batches
-   on either side of the crossover of ``ops.celerite.team_size``; then the
+   must be equal to their plain versions (``torch.equal``); then the three
+   celerite layouts (32, 8 and 1 lanes per likelihood) timed in turns at
+   the batches on either side of each crossover of
+   ``ops.celerite.team_size``, each against the plain version and the
+   8-lane layout (``ops.layout_sweep``); then the
    MAP fit on the card against the plain version's fit on the CPU at
    N=1000 (the same optimum);
 4. Gaussian main path: ``protassov_lrt(..., device="cuda")`` on the lrt_512
@@ -59,7 +63,8 @@ Phases, each printed with its seconds:
    below the Poisson error of ~15 counts a bin), then
    ``cli.main(["fit" ...])``, ``["simulate" ...]`` (512 simulations) and
    ``["lrt" ...]`` (512, with a checkpoint) in this process at the default
-   depths, with Kraft low-count noise on the path; the Kraft tables built
+   depths but the observed chains of fit and lrt (2000 steps), with Kraft
+   low-count noise on the path; the Kraft tables built
    on the card against the plain version on the CPU (1e-9); then the
    resume check on the lrt's fitted models at chunk=128: the t_dist of a
    run resumed from a checkpoint rewound to 2 chunks must equal the
@@ -67,7 +72,7 @@ Phases, each printed with its seconds:
 11. model selection and the periodogram at full width, on phase 4's N=5000
    data: ``selection.compare_models`` with the model-selection tutorial's
    four candidates (DRW, SHO, Matern32, DRW+QPO: R = 1, 4, 2, 3), 24
-   walkers, max_steps 4000, seed 0, each candidate's max log-likelihood
+   walkers, max_steps 1000, seed 0, each candidate's max log-likelihood
    against the plain float64 likelihood on the CPU (rtol 1e-10), then the
    gradient kernel against its plain version at the R = 2 and R = 4
    MAP-fit shapes beside its latency floor; ``GPModelling.fit_device``
@@ -101,7 +106,8 @@ Phases, each printed with its seconds:
 14. validation: the programs of ``mind_the_gaps_tpu_torch.examples`` in
    this process through their ``run()``, at the JAX scripts' widths
    (float32 refits, 12 walkers, 300 steps, early stop (0.01, 50)), each
-   check's launches printed: (a) the batched Gaussian p-value calibration
+   check's launches printed ((d) and (e) with their observed chains cut to
+   500 and 2000 steps): (a) the batched Gaussian p-value calibration
    at K=32 x 127, n=400, every p in [1/128, 1], failing at a KS p below
    0.001; (b) the batched lognormal calibration at n=850 (E13 cut 16384, the
    sort's one-CTA tier), K=16 x 63, with the sort kernels required in both
@@ -119,21 +125,25 @@ Phases, each printed with its seconds:
    repo's ``benchmarks/lrt_10k.py``) on phase 4's fitted observed models,
    10,000 simulations in 20 chunks of 512 (the last 272 and the observed
    row), 12 walkers x 500 steps, float32 refits and the float64 refine:
-   10,000 finite T, 0 <= p <= 1, t_obs_posterior equal to phase 4's, both
-   celerite layouts launched (the last chunk's refits with 8 lanes), and
+   10,000 finite T, 0 <= p <= 1, t_obs_posterior equal to phase 4's, the
+   celerite kernel launched with a warp (the refine) and in the layouts
+   ``team_size`` gives the refits' launches (a whole chunk's and the last's), and
    a two-sample KS test of phase 4's 512 T against the 10,000 not rejected
    at p < 0.001 (both are draws of the same null posterior predictive);
 16. the bench (``mind_the_gaps_tpu_torch.bench``, the JAX repo's
-   ``bench.py``) at its sizes: the primary metric, 65,536 parameter rows x
+   ``bench.py``): the primary metric at its size, 65,536 parameter rows x
    N=5000 float32 over one shared data column, with the bench's two gates
    (float32 within 1.0 of float64 on 8 rows; the kernel within 0.5 of its
    plain version over the whole batch) and its launches (4 + 2 reps); the
-   bootstrap chunk (512 x 12 walkers x 500 steps, early stop (0.01, 50),
+   bootstrap chunk (512 x 12 walkers, early stop (0.01, 50),
    null and alternative, each model's 512 best log-likelihoods finite) and
-   the 4000-step x 32-walker ``derive_posteriors``; then the kernel on the
-   first 1,024 rows against its plain version (rtol 1e-4, atol 1e-2) and
-   both layouts (32 and 8 lanes) at the primary shape, equal within that
-   tolerance and timed beside the bound and the latency floor.  Phases 4
+   ``derive_posteriors`` with 32 walkers, both cut (100 and 400 steps, from
+   the bench's 500 and 4000: phases 4 and 15 run them at full depth); then
+   the kernel on the first 1,024 rows against its plain version (rtol
+   1e-4, atol 1e-2) and the three layouts (32, 8 and 1 lanes) at the
+   primary shape, equal to the 8-lane layout within that tolerance, timed
+   in turns beside the bound and the latency floor, with the rows whose
+   bits differ from the 8-lane layout's.  Phases 4
    and 6 are the bench's ``lrt_512`` and E13 phases, so they are not run
    again.
 
@@ -184,6 +194,7 @@ BEFORE_REDESIGN_MS = {
     "float64 refine": 2.510,
     "dense-S, bootstrap alt step": 1.791,
     "dense-S, float64 refine": 2.536,
+    "bench primary": 10.301,  # 8 lanes a likelihood, the bench's kernel_ms before the one-thread layout
     "rank_remap (128, 65536) one E13 step": 1.452,
     "rank_remap (128, 65536) planted": 1.400,
     "rank_remap (512, 8192)": 0.411,
@@ -203,6 +214,18 @@ BEFORE_REDESIGN_MS = {
 GRAD_FLOOR_AIM = 3.0
 # phase 13: seconds for all its ranks to finish
 RANKS_TIMEOUT_S = 600
+# depths cut to keep the script within half its time limit (PERF.md section
+# 4): the observed chains of phase 10's cli fit and lrt (the CLI's 10,000
+# steps) and phase 14 ((d): the script's 2000 steps; (e): the tutorial's
+# 10,000), which repeat phase 4's; phase 11's compare_models (4000 steps);
+# phase 16's bootstrap chunk (the bench's 500 steps) and derive_posteriors
+# (the bench's 4000 steps), which repeat phases 4 and 15
+CLI_OBSERVED_STEPS = 2000
+SELECTION_STEPS = 1000
+VALIDATION_D_OBSERVED_STEPS = 500
+VALIDATION_E_OBSERVED_STEPS = 2000
+BENCH_BOOT_STEPS = 100
+BENCH_DP_STEPS = 400
 
 
 def before_note(name):
@@ -232,7 +255,8 @@ def read_counts():
 
     return dict(celerite=celerite_log_likelihood.launches, celerite_dense=celerite_log_likelihood.dense_launches,
                 celerite_warp=celerite_log_likelihood.team_launches[32],
-                celerite_split=sum(v for k, v in celerite_log_likelihood.team_launches.items() if k != 32),
+                celerite_split=celerite_log_likelihood.team_launches[8],
+                celerite_lane=celerite_log_likelihood.team_launches[1],
                 rank_remap=rank_remap.launches, sort_kv=sort_kv.launches,
                 celerite_grad=celerite_log_likelihood_and_grad.launches)
 
@@ -254,6 +278,18 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(fn):
+    """(result, milliseconds) of one run of ``fn()``, from CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def sort_bound(case):
@@ -508,7 +544,7 @@ def kernel_cases(card):
     from mind_the_gaps_tpu_torch.bench import celerite_bound
     from mind_the_gaps_tpu_torch.kernels import DampedRandomWalk, Lorentzian, RealTerm
     from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood, celerite_log_likelihood_plain
-    from mind_the_gaps_tpu_torch.ops.celerite import TEAMS, _launch, team_size
+    from mind_the_gaps_tpu_torch.ops.celerite import _launch, layouts, team_size
 
     dev = torch.device("cuda")
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -563,21 +599,21 @@ def kernel_cases(card):
          "same", False),
         ("dense-S, float64 refine: per-element B=513 N=5000 R=3 f64", drw_qpo, 513, t5k, "per", f64, None,
          "same", False),
+        ("bench primary: shared B=65536 N=5000 R=3 f32", drw_qpo, 65536, t5k, "shared", f32, None, "same", True),
     ]
     results = []
     for name, kernel, B, t, layout, dtype, G, reference, sym in cases:
         args = inputs(kernel, B, t, layout, dtype, G)
         out = celerite_log_likelihood(**args, sym=sym)
         torch.cuda.synchronize()
-        if reference == "same":
-            ref_args = args
+        if reference == "same":  # the plain version, timed on this one run (CUDA events)
+            ref, plain_ms = timed(lambda: celerite_log_likelihood_plain(**args))
         else:  # the same draws in float64
             ref_args = {k: (v.double() if torch.is_tensor(v) and v.is_floating_point() else v)
                         for k, v in args.items()}
             ref_args["coeffs"] = type(args["coeffs"])(*(c.double() for c in args["coeffs"]))
-        ref = celerite_log_likelihood_plain(**ref_args)
+            ref, plain_ms = celerite_log_likelihood_plain(**ref_args), None  # no run of the plain version to time
         ms = cuda_ms(lambda: celerite_log_likelihood(**args, sym=sym), reps=5)
-        plain_ms = cuda_ms(lambda: celerite_log_likelihood_plain(**args), reps=1)
         finite = torch.isfinite(ref)
         check(torch.equal(torch.isfinite(out), finite), f"{name}: -inf pattern differs")
         check(bool(finite.all()), f"{name}: the plain version is not finite")
@@ -596,9 +632,13 @@ def kernel_cases(card):
                     B=B, N=len(t), jr=jr, jc=jc, cols=1 if args["y"].dim() == 1 else args["y"].shape[0],
                     itemsize=args["y"].element_size())
         case["bound_ms"], case["bound_by"] = celerite_bound(case)
-        team = team_size(B, sm_count, jr, jc)
-        print(f"[kernel] {name}: max_abs_err={max_abs:.3e} ({tol}) kernel {ms:.3f} ms (L={team}{before_note(name)}), "
-              f"plain {plain_ms:.3f} ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}) [{card}]", flush=True)
+        team = case["team"] = team_size(B, sm_count, jr, jc, sym)
+        bits = ""
+        if team == 1:  # the same operations in the same order as the teams: the rows whose bits differ
+            bits = f", {int((out != _launch(**args, team=8)).sum())} of {B} rows differ from L=8's bits"
+        plain = "not timed" if plain_ms is None else f"{plain_ms:.3f} ms"
+        print(f"[kernel] {name}: max_abs_err={max_abs:.3e} ({tol}) kernel {ms:.3f} ms (L={team}{before_note(name)}"
+              f"{bits}), plain {plain}, bound {case['bound_ms']:.4f} ms ({case['bound_by']}) [{card}]", flush=True)
         check(ok, f"{name}: kernel disagrees with the plain version (max abs err {max_abs})")
         results.append(case)
 
@@ -609,37 +649,36 @@ def kernel_cases(card):
         ref = celerite_log_likelihood_plain(**args)
         check(bool(torch.all(ref == -math.inf)), "non-PD theta must give -inf from the plain version")
         for sym in (True, False):
-            for team in TEAMS:
-                if kernel is wide10 and team != 32:
-                    continue
+            c = args["coeffs"]
+            for team in layouts(c.ar.shape[1], c.ac.shape[1], sym):
                 out = _launch(**args, sym=sym, team=team)
                 check(bool(torch.all(out == -math.inf)), f"non-PD theta must give -inf (sym={sym}, L={team})")
     print("[kernel] non-PD theta: -inf from every kernel body and layout and the plain version", flush=True)
-    layout_sweep(card, inputs, drw_qpo, t5k, sm_count)
+    layout_sweep(card, sm_count)
     return results
 
 
-def layout_sweep(card, inputs, kernel, t, sm_count):
-    """Phase 3, celerite layouts: teams of 32 and 8 lanes per likelihood at
-    the batches on either side of ``team_size``'s crossover (its setting and
-    6 likelihoods an SM), at the bootstrap's and the observed fit's data
-    layouts; they must agree (rtol 1e-10 f64; rtol 1e-4, atol 1e-2 f32)."""
-    import torch
+def layout_sweep(card, sm_count):
+    """Phase 3, celerite layouts: every layout (32, 8 and 1 lanes per
+    likelihood) at the batches on either side of each of ``team_size``'s
+    crossovers, at the bootstrap's (float32 grouped) and the observed
+    fit's (float64 shared) data layouts, timed in turns
+    (``ops.layout_sweep.sweep_point``): each against the plain version on
+    its first rows and against the 8-lane layout on every row (rtol 1e-10
+    f64; rtol 1e-4, atol 1e-2 f32; the same -inf rows), and the rows whose
+    bits differ from the 8-lane layout's."""
+    from mind_the_gaps_tpu_torch.ops.celerite import LANE_LAYOUT_MIN_PER_SM, WARP_TEAM_MAX_PER_SM
+    from mind_the_gaps_tpu_torch.ops.layout_sweep import CASES, sweep_point
 
-    from mind_the_gaps_tpu_torch.ops.celerite import TEAMS, WARP_TEAM_MAX_PER_SM, _launch, team_size
-
-    f32, f64 = torch.float32, torch.float64
-    for dtype, layout in ((f32, "grouped"), (f64, "shared")):
-        for B in (WARP_TEAM_MAX_PER_SM * sm_count, 6 * sm_count):
-            args = inputs(kernel, B, t, layout, dtype, G=B // 6 if B % 6 == 0 else B)
-            outs = {team: _launch(**args, team=team).double() for team in TEAMS}
-            tol = (1e-10 * outs[32].abs()) if dtype == f64 else (1e-2 + 1e-4 * outs[32].abs())
-            for team in TEAMS:
-                check(bool(((outs[team] - outs[32]).abs() <= tol).all()), f"layouts disagree at B={B} {dtype}")
-            ms = {team: cuda_ms(lambda: _launch(**args, team=team), reps=3) for team in TEAMS}
-            times = ", ".join(f"L={team} {ms[team]:.3f} ms" for team in TEAMS)
-            print(f"[layout] {layout} R=3 {dtype} B={B} ({B / sm_count:.2f} per SM): {times}, "
-                  f"rule L={team_size(B, sm_count, 1, 1)} [{card}]", flush=True)
+    for per_sm in (WARP_TEAM_MAX_PER_SM, WARP_TEAM_MAX_PER_SM + 2, LANE_LAYOUT_MIN_PER_SM - 1, LANE_LAYOUT_MIN_PER_SM):
+        for layout, dtype in CASES:
+            B = per_sm * sm_count
+            B -= B % 6 if layout == "grouped" else 0
+            row = sweep_point(B, layout, dtype)
+            times = ", ".join(f"{k} {v:.3f} ms" for k, v in row["ms"].items())
+            print(f"[layout] {layout} R=3 {row['dtype']} B={B} ({row['per_sm']:.2f} per SM): {times}, rule "
+                  f"L={row['rule']}; rows whose bits differ from L=8's {row['rows_differ_from_8']}; max abs err "
+                  f"against plain {row['max_abs_err']} [{card}]", flush=True)
 
 
 def e13_step_keys(lc, kernel, B, dev, seed=0):
@@ -793,7 +832,8 @@ def cli_phase(card, lc, workdir, reset_counts, read_counts):
         return out, counts
 
     chain, sims, ckpt = workdir / "chain.npz", workdir / "sims.npz", workdir / "lrt.npz"
-    gp, fit_counts = run("fit", ["fit", str(csv), "--kernel", "drw", "--output", str(chain)])
+    gp, fit_counts = run("fit", ["fit", str(csv), "--kernel", "drw", "--max-steps", str(CLI_OBSERVED_STEPS),
+                                 "--output", str(chain)])
     check(fit_counts["celerite_grad"] > 0 and fit_counts["celerite"] > 0,
           "cli fit did not launch the gradient and celerite kernels")
     check(np.isfinite(gp.max_loglikelihood) and len(gp.mcmc_samples) > 10, "cli fit: no finite posterior")
@@ -811,7 +851,7 @@ def cli_phase(card, lc, workdir, reset_counts, read_counts):
           and bool(np.all(dy > 0)), "cli simulate: rates or errors not finite")
 
     res, lrt_counts = run("lrt", ["lrt", str(csv), "--null", "drw", "--alt", "drw+qpo", "--nsims", "512",
-                                  "--checkpoint", str(ckpt)])
+                                  "--max-steps", str(CLI_OBSERVED_STEPS), "--checkpoint", str(ckpt)])
     kraft = res.null_model._simulator.noise
     share_lrt = int(kraft.bins_replaced) / kraft.bins_drawn
     for key, sec in res.timings.items():
@@ -881,7 +921,7 @@ def e13_generation_rate(card, dev, n_points=500, B=256):
 def selection_phase(card, lc, latency, reset_counts, read_counts):
     """Phase 11, model selection: ``compare_models`` with the tutorial's four
     candidates (R = 1, 4, 2, 3) on phase 4's N=5000 data, walkers=24,
-    max_steps=4000, seed=0, on the card.  Each candidate's
+    max_steps=SELECTION_STEPS, seed=0, on the card.  Each candidate's
     ``max_loglikelihood`` against the plain float64 likelihood on the CPU at
     its ``max_parameters`` (rtol 1e-10), its AICc finite, the Akaike weights
     summing to 1 (1e-12); then the gradient kernel against its plain version
@@ -900,12 +940,13 @@ def selection_phase(card, lc, latency, reset_counts, read_counts):
     kernels = candidates()
     reset_counts()
     t0 = time.perf_counter()
-    results = compare_models(lc, kernels, max_steps=4000, walkers=24, seed=0, device="cuda")
+    results = compare_models(lc, kernels, max_steps=SELECTION_STEPS, walkers=24, seed=0, device="cuda")
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     counts = read_counts()
     total = sum(r.akaike_weight for r in results)
-    print(f"[select] compare_models, 4 candidates x 24 walkers, max_steps 4000: {sec:.3f} s, launches = {counts}, "
+    print(f"[select] compare_models, 4 candidates x 24 walkers, max_steps {SELECTION_STEPS}: {sec:.3f} s, launches = "
+          f"{counts}, "
           f"Akaike weights sum to 1 {total - 1.0:+.3e} [{card}]", flush=True)
     widths = {}
     for r in results:
@@ -1442,7 +1483,8 @@ def validation_phase(card):
     check(top >= 0.9, f"(c) the detection fraction at a = 0.25 is {top} < 0.9")
 
     # (d) the full pipeline, Gaussian
-    d = counted("d", lambda: validation_full_pipeline_calibration.run(k=4, device="cuda"))
+    d = counted("d", lambda: validation_full_pipeline_calibration.run(
+        k=4, observed_max_steps=VALIDATION_D_OBSERVED_STEPS, device="cuda"))
     p, t = np.asarray(d["p_values"]), np.asarray(d["t_obs"])
     check(bool(np.all(np.isfinite(t))) and bool(np.all((p >= 0.0) & (p <= 1.0))), "(d) a T_obs or p out of range")
     print(f"[validation] (d) full pipeline, K=4 x 127: p {p.tolist()}, T_obs {t.tolist()}, observed chains converged "
@@ -1451,7 +1493,8 @@ def validation_phase(card):
     # (e) the tutorial's LRT with the QPO injected, on the JAX script's seed-42 realization (its Poisson counts);
     # the QPO's power falls in one or two Fourier bins, so a realization may carry little of it: this card's own
     # seed-42 realization must be the committed one, whose MAP T the tests hold against the JAX package's
-    e = counted("e", lambda: tutorial_ppp.run(nsims=255, qpo=True, device="cuda", counts=tutorial_ppp.reference_counts()))
+    e = counted("e", lambda: tutorial_ppp.run(nsims=255, qpo=True, max_steps=VALIDATION_E_OBSERVED_STEPS,
+                                              device="cuda", counts=tutorial_ppp.reference_counts()))
     print(f"[validation] (e) tutorial_ppp --qpo on the JAX script's realization, 255 simulations: T_obs "
           f"{e['t_obs']:.6f} (posterior chain {e['t_obs_posterior']:.6f}), T_dist median {e['t_dist_median']:.6f}, 99th "
           f"percentile {e['t_dist_p99']:.6f}, p {e['p_value']:.6f}, converged {e['converged']} [{card}]", flush=True)
@@ -1524,13 +1567,15 @@ def lrt_10k_phase(card, res):
     counts = read_counts()
     lc, null, alt = scenario()
     last_rows = nsims + 1 - (out["chunks"] - 1) * chunk
-    lanes = {name: batch_team(k, last_rows * walkers, "cuda") for name, k in (("null", null), ("alt", alt))}
+    # the layouts of the refits' launches (rows x half the walkers a launch): a whole chunk's and the last one's
+    lanes = {(name, rows): batch_team(k, rows * (walkers // 2), "cuda") for name, k in (("null", null), ("alt", alt))
+             for rows in (chunk, last_rows)}
     t_dist = out["t_dist"]
     ks = ks_2samp(res.t_dist, t_dist)
     for key, sec in out["timings"].items():
         print(f"[lrt_10k] {key} = {sec:.3f}", flush=True)
     print(f"[lrt_10k] {nsims} simulations in {out['chunks']} chunks of {chunk} (the last {last_rows} rows with the "
-          f"observed one; {last_rows * walkers} likelihoods a refit launch there, lanes {lanes}): {out['value']:.3f} s, "
+          f"observed one; lanes of the refit launches by (model, rows) {lanes}): {out['value']:.3f} s, "
           f"t_obs = {out['t_obs']:.6f}, p_value = {out['p_value']:.6f}, t_obs_posterior = "
           f"{out['t_obs_posterior']:.6f} (phase 4's {res.t_obs_posterior:.6f}), T median {np.median(t_dist):.6f}, "
           f"99th percentile {np.percentile(t_dist, 99):.6f}; KS against phase 4's {len(res.t_dist)} T: D = "
@@ -1539,9 +1584,10 @@ def lrt_10k_phase(card, res):
     check(0.0 <= out["p_value"] <= 1.0, f"lrt_10k: p-value {out['p_value']} outside [0, 1]")
     check(out["t_obs_posterior"] == res.t_obs_posterior,
           "lrt_10k: t_obs_posterior differs from phase 4's (the same observed models)")
-    check(counts["celerite_warp"] > 0 and counts["celerite_split"] > 0,
-          "lrt_10k: the bootstrap did not launch the celerite kernel in both layouts")
-    check(set(lanes.values()) == {8}, f"lrt_10k: the last chunk's refits took lanes {lanes}, not 8")
+    key = {32: "celerite_warp", 8: "celerite_split", 1: "celerite_lane"}
+    check(counts["celerite_warp"] > 0 and all(counts[key[team]] > 0 for team in lanes.values()),
+          f"lrt_10k: the bootstrap did not launch the celerite kernel with a warp (the refine) and the refits' "
+          f"layouts {lanes}: {counts}")
     check(ks.pvalue >= 0.001, f"lrt_10k: its T distribution differs from phase 4's (KS p {ks.pvalue} < 0.001)")
     check("jax" not in sys.modules, "the port imported jax")
     return counts
@@ -1549,14 +1595,15 @@ def lrt_10k_phase(card, res):
 
 def bench_phase(card, latency):
     """Phase 16, the port's bench (``mind_the_gaps_tpu_torch.bench``, the JAX
-    repo's ``bench.py``) at its sizes: the primary metric (65,536 rows x
+    repo's ``bench.py``): the primary metric at its size (65,536 rows x
     N=5000, float32, one shared data column, with the bench's two gates), the
-    bootstrap chunk (512 x 12 walkers x 500 steps, null and alternative) and
-    the 4000-step x 32-walker ``derive_posteriors``; returns their launch
-    counts.  Then, outside the count: the kernel's values on the first 1,024
-    rows against its plain version (rtol 1e-4, atol 1e-2), and both layouts
-    (32 and 8 lanes a likelihood, ``ops.celerite._launch``) at the primary
-    shape, equal within that tolerance, each timed beside the bound and the
+    bootstrap chunk (512 x 12 walkers x BENCH_BOOT_STEPS steps, null and
+    alternative) and a BENCH_DP_STEPS-step x 32-walker ``derive_posteriors``;
+    returns their launch counts.  Then, outside the count: the kernel's values
+    on the first 1,024 rows against its plain version (rtol 1e-4, atol 1e-2),
+    and the three layouts (32, 8 and 1 lanes a likelihood,
+    ``ops.celerite._launch``) at the primary shape, equal to the 8-lane
+    layout within that tolerance, timed in turns beside the bound and the
     latency floor (``latency``: phase 3's dependent-FMA ns)."""
     import torch
 
@@ -1570,8 +1617,8 @@ def bench_phase(card, latency):
     clock = time.perf_counter()
     prim = bench.primary(t, y, diag, kernel, reps=reps, device="cuda", latency_ns=latency["float32"])
     prim_s = time.perf_counter() - clock
-    boot = bench.bootstrap_chunk_seconds(t, y, diag, device="cuda")
-    dp = bench.derive_posteriors_seconds(t, y, diag, device="cuda")
+    boot = bench.bootstrap_chunk_seconds(t, y, diag, n_steps=BENCH_BOOT_STEPS, device="cuda")
+    dp = bench.derive_posteriors_seconds(t, y, diag, steps=BENCH_DP_STEPS, device="cuda")
     torch.cuda.synchronize()
     counts = read_counts()
     B = prim["thetas"].shape[0]
@@ -1584,12 +1631,13 @@ def bench_phase(card, latency):
           f"{prim['gate_kernel_plain_max_abs_err']:.3e}; {prim['launches']} launches, {prim_s:.3f} s [{card}]",
           flush=True)
     print(f"[bench] bootstrap chunk ({boot['bootstrap_chunk_sims']} x {boot['bootstrap_walkers']} walkers x "
-          f"{boot['bootstrap_steps']} steps, early stop {boot['bootstrap_early_stop']}): null "
+          f"{boot['bootstrap_steps']} steps (cut from the bench's 500), early stop "
+          f"{boot['bootstrap_early_stop']}): null "
           f"{boot['bootstrap_chunk_seconds_null']:.3f} s in {boot['bootstrap_steps_run_null']} steps, alt "
           f"{boot['bootstrap_chunk_seconds_alt']:.3f} s in {boot['bootstrap_steps_run_alt']} steps; scaled to 10,000 "
           f"simulations {boot['bootstrap_10k_seconds']:.3f} s [{card}]", flush=True)
     print(f"[bench] derive_posteriors {dp['derive_posteriors_walkers']} walkers x {dp['derive_posteriors_steps']} "
-          f"steps (converge=False, float64): {dp['derive_posteriors_4k_seconds']:.3f} s, "
+          f"steps (cut from the bench's 4000; converge=False, float64): {dp['derive_posteriors_4k_seconds']:.3f} s, "
           f"{dp['derive_posteriors_launches']} launches [{card}]", flush=True)
     print(f"[bench] launches = {counts}", flush=True)
     check(prim["value"] > 0, "bench: the primary metric is not positive")
@@ -1609,15 +1657,24 @@ def bench_phase(card, latency):
     check(bool((err <= 1e-2 + 1e-4 * ref.abs()).all()), "bench: the kernel disagrees with its plain version")
     coeffs = kernel.coefficients(prim["thetas"])
     floor_ms = prim["latency_floor_ms"]
-    outs = {team: _launch(coeffs, *data32, team=team).double() for team in TEAMS}
+    outs = {team: _launch(coeffs, *data32, team=team) for team in TEAMS}
     for team in TEAMS:
-        check(bool(((outs[team] - outs[32]).abs() <= 1e-2 + 1e-4 * outs[32].abs()).all()),
+        ref8 = outs[8].double()
+        check(bool(((outs[team].double() - ref8).abs() <= 1e-2 + 1e-4 * ref8.abs()).all()),
               f"bench: the layouts disagree at the primary shape (L={team})")
-        ms = cuda_ms(lambda: _launch(coeffs, *data32, team=team), reps=5)
-        print(f"[layout] bench primary, shared column R=3 float32 B={B} "
-              f"({B / torch.cuda.get_device_properties(0).multi_processor_count:.1f} per SM): L={team} {ms:.3f} ms, "
-              f"{B / ms * 1e3:.1f} evals/s, bound {prim['bound_ms']:.4f} ms ({prim['bound_by']}), latency floor {floor_ms:.4f} ms "
-              f"({ms / floor_ms:.2f}x), rule L={prim['team']} [{card}]", flush=True)
+    ms = {team: [] for team in TEAMS}
+    for team in TEAMS + TEAMS[::-1]:  # in turns
+        ms[team].append(cuda_ms(lambda: _launch(coeffs, *data32, team=team), reps=5))
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    for team in TEAMS:
+        mean = sum(ms[team]) / len(ms[team])
+        print(f"[layout] bench primary, shared column R=3 float32 B={B} ({B / sm_count:.1f} per SM): L={team} "
+              f"{mean:.3f} ms (readings {', '.join(f'{x:.3f}' for x in ms[team])}), {B / mean * 1e3:.1f} evals/s, "
+              f"bound {prim['bound_ms']:.4f} ms ({prim['bound_by']}), latency floor {floor_ms:.4f} ms "
+              f"({mean / floor_ms:.2f}x), {int((outs[team] != outs[8]).sum())} rows differ from L=8's bits, rule "
+              f"L={prim['team']} [{card}]", flush=True)
+    if prim["team"] == 1:
+        check(counts["celerite_lane"] > 0, "bench: the primary never launched the one-thread layout")
     check("jax" not in sys.modules, "the port imported jax")
     return counts
 
@@ -1956,15 +2013,17 @@ def main(argv=None):
     obs = named(cel_cases, "observed-fit step")
     cel = named(cel_cases, "bootstrap alt step")
     dense = named(cel_cases, "dense-S, bootstrap alt step")
+    primary = named(cel_cases, "bench primary")
     remap = named(srt_cases, "rank_remap (128, 65536) one E13 step")
     srt = named(srt_cases, "sort_kv (128, 65536) f64")
-    for c in (grad_alt, obs, cel, dense, remap, srt):
+    for c in (grad_alt, obs, cel, primary, dense, remap, srt):
         print(f"[summary] times of the entry: {c['name']}{before_note(c['name'])}", flush=True)
     print("[summary] launches are the sums over the Gaussian, lognormal, fitted-mean, chains=4, CLI (fit, "
           "simulate, lrt), model-selection, fit_device, mesh, processes (the ranks summed), validation, "
           "10,000-simulation bootstrap and bench paths (the bench's gates included); the probe's "
           "are those of its own entry point (fma_probe.probe) "
-          "(the celerite entries: its launches with a warp and with 8 lanes per likelihood); the sorts' plain "
+          "(the celerite entries: its launches with a warp, with 8 lanes and with a thread per likelihood); the "
+          "sorts' plain "
           "versions are the library calls (stable torch.sort / argsort with a gather / scatter); the "
           "gradient kernel's plain version is autograd through solver/semiseparable.py on the card", flush=True)
     print(f"[goal] rank_remap (128, 65536): kernel {remap['ms']:.3f} ms against the library's "
@@ -1987,6 +2046,8 @@ def main(argv=None):
             "mind_the_gaps_tpu/ops/pallas_celerite.py:520", launches("celerite_warp"), obs, None),
         row("celerite_loglike, 8 lanes a likelihood (bootstrap alt shape)", "cuda", CELERITE_SOURCE,
             "mind_the_gaps_tpu/ops/pallas_celerite.py:520", launches("celerite_split"), cel, None),
+        row("celerite_loglike, a thread a likelihood (bench primary shape)", "cuda", CELERITE_SOURCE,
+            "mind_the_gaps_tpu/ops/pallas_celerite.py:520", launches("celerite_lane"), primary, None),
         row("celerite_loglike dense-S (bootstrap alt shape)", "cuda", CELERITE_SOURCE,
             "mind_the_gaps_tpu/ops/pallas_celerite.py:48", launches("celerite_dense"), dense, None),
         row("bitonic_sort rank_remap", "cuda", SORT_SOURCE, "mind_the_gaps_tpu/ops/pallas_sort.py:556",

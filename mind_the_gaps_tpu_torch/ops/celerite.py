@@ -25,14 +25,20 @@ whatever ``sym``.  A CUDA tensor launches the kernel of
 body, ``.dense_launches`` those of the dense-S body, and
 ``.team_launches[L]`` the packed launches with L lanes per likelihood.
 
-Layout (``team_size``): a team of 32 lanes (a warp) per likelihood at
-small batches, 8 lanes at large ones.  The kernel's compile-time bodies
-(packed and dense-S) cover the (Jr, Jc) of ``STATIC_WIDTHS``; any other
-R >= 1 runs its runtime-R body, which takes the warp layout only.
-``team=`` pins a layout: the shards of a sharded batch (``parallel``) launch
-with the layout of the whole batch (``batch_team``), so that each row gets
-the bits it gets there.  ``_launch`` takes the layout as an argument, for
-tests that hold each layout against the plain version.
+Layouts (``team_size``), L lanes per likelihood, chosen from the
+likelihoods an SM at crossovers measured on an H100 (PERF.md section 6):
+a team of 32 lanes (a warp) up to ``WARP_TEAM_MAX_PER_SM``, where a
+chain's latency sets the time; a team of 8 lanes above it; one thread a
+likelihood (L = 1) from ``LANE_LAYOUT_MIN_PER_SM``, where the card is
+bound by instruction issue and a team's chain phase leaves all but one of
+its lanes idle.  The kernel's compile-time bodies (packed and dense-S)
+cover the (Jr, Jc) of ``STATIC_WIDTHS``; any other R >= 1 runs its
+runtime-R body, which takes the warp layout only, and the dense-S body
+keeps the teams (``layouts``).  ``team=`` pins a layout: the shards of a
+sharded batch (``parallel``) launch with the layout of the whole batch
+(``batch_team``), so that each row gets the bits it gets there.
+``_launch`` takes the layout as an argument, for tests that hold each
+layout against the plain version.
 """
 from __future__ import annotations
 
@@ -44,8 +50,8 @@ import torch
 from mind_the_gaps_tpu_torch.ops._build import device_scope, load_library, stream_handle
 from mind_the_gaps_tpu_torch.solver.batched import batched_log_likelihood, check_layout
 
-__all__ = ["celerite_log_likelihood", "celerite_log_likelihood_plain", "team_size", "batch_team", "STATIC_WIDTHS",
-           "WARP_TEAM_MAX_PER_SM", "TEAMS", "check_coefficients"]
+__all__ = ["celerite_log_likelihood", "celerite_log_likelihood_plain", "team_size", "batch_team", "layouts",
+           "STATIC_WIDTHS", "WARP_TEAM_MAX_PER_SM", "LANE_LAYOUT_MIN_PER_SM", "TEAMS", "check_coefficients"]
 
 celerite_log_likelihood_plain = batched_log_likelihood
 
@@ -63,14 +69,33 @@ STATIC_WIDTHS = frozenset(
 # (PERF.md section 6): at R=3, f32 and f64, L=32 was the faster up to 4 per
 # SM and L=8 from 6 per SM.
 WARP_TEAM_MAX_PER_SM = 4
-TEAMS = (32, 8)  # the compile-time bodies' layouts
+# Likelihoods per SM from which one thread serves each likelihood (the
+# packed body only).  Set from ``python -m
+# mind_the_gaps_tpu_torch.ops.layout_sweep`` on the H100 (PERF.md section 6):
+# at R=3, float32 grouped (the bootstrap's), L=8 was the faster up to 93 per
+# SM and L=1 from 110; float64 shared crossed lower (between 64 and 80).
+LANE_LAYOUT_MIN_PER_SM = 100
+TEAMS = (32, 8, 1)  # the layouts: lanes per likelihood
 
 
-def team_size(B: int, sm_count: int, jr: int, jc: int) -> int:
+def layouts(jr: int, jc: int, sym: bool = True) -> tuple:
+    """The layouts the kernel has for a body: all of TEAMS for the packed
+    body at a compile-time width, the teams (32, 8) for its dense-S body,
+    the warp (32) for the runtime-R body."""
+    if (jr, jc) not in STATIC_WIDTHS:
+        return (32,)
+    return TEAMS if sym else (32, 8)
+
+
+def team_size(B: int, sm_count: int, jr: int, jc: int, sym: bool = True) -> int:
     """Lanes per likelihood from the batch per SM: 32 up to
-    WARP_TEAM_MAX_PER_SM, else 8.  The runtime-R body exists only with 32."""
-    if (jr, jc) not in STATIC_WIDTHS or B <= WARP_TEAM_MAX_PER_SM * sm_count:
+    WARP_TEAM_MAX_PER_SM, 1 from LANE_LAYOUT_MIN_PER_SM, else 8; only a
+    layout of ``layouts(jr, jc, sym)``."""
+    have = layouts(jr, jc, sym)
+    if B <= WARP_TEAM_MAX_PER_SM * sm_count or len(have) == 1:
         return 32
+    if B >= LANE_LAYOUT_MIN_PER_SM * sm_count and 1 in have:
+        return 1
     return 8
 
 
@@ -133,7 +158,7 @@ def check_coefficients(coeffs):
 def celerite_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None, sym: bool = True,
                             team=None):
     """(B,) log-likelihoods; -inf where K(theta_b) is not positive definite.
-    ``team``: the kernel's lanes per likelihood (one of TEAMS), by default
+    ``team``: the kernel's lanes per likelihood (one of ``layouts``), by default
     ``team_size``'s for this batch; the plain version has no layout and
     ignores it."""
     ar = coeffs[0]
@@ -146,11 +171,14 @@ def celerite_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, ext
 
 def _launch(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None, sym: bool = True, team=None):
     """The kernel on CUDA tensors, with ``team`` lanes per likelihood (one
-    of TEAMS), or ``team_size``'s layout when it is None."""
+    of the body's ``layouts``), or ``team_size``'s layout when it is None."""
     ar = coeffs[0]
+    B, Jr, Jc = check_coefficients(coeffs)
+    if team is not None and team not in layouts(Jr, Jc, sym):
+        raise ValueError(f"team must be one of {layouts(Jr, Jc, sym)} lanes for this body (Jr={Jr}, Jc={Jc}, "
+                         f"sym={sym}), got {team}")
     if ar.device.type != "cuda":
         raise ValueError(f"celerite_log_likelihood runs on CPU or CUDA tensors, not {ar.device}")
-    B, Jr, Jc = check_coefficients(coeffs)
     dtype, device = ar.dtype, ar.device
 
     t64 = torch.as_tensor(t, dtype=torch.float64, device=device)
@@ -173,9 +201,7 @@ def _launch(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None, sy
     if B == 0:
         return out
     if team is None:
-        team = team_size(B, _sm_count(device), Jr, Jc)
-    if team not in TEAMS:
-        raise ValueError(f"team must be one of {TEAMS} lanes, got {team}")
+        team = team_size(B, _sm_count(device), Jr, Jc, sym)
     with device_scope(device):
         stream = stream_handle(device)
         rc = _entry(dtype)(

@@ -33,11 +33,13 @@ from mind_the_gaps_tpu_torch.ops import (  # noqa: E402
     celerite_log_likelihood_plain,
 )
 from mind_the_gaps_tpu_torch.ops.celerite import (  # noqa: E402
+    LANE_LAYOUT_MIN_PER_SM,
     STATIC_WIDTHS,
     TEAMS,
     WARP_TEAM_MAX_PER_SM,
     _launch,
     check_coefficients,
+    layouts,
     team_size,
 )
 from mind_the_gaps_tpu_torch.solver.batched import CHUNK, chunk_sums  # noqa: E402
@@ -169,7 +171,7 @@ H100_SMS = 132
     (WARP_TEAM_MAX_PER_SM * H100_SMS, 1, 0, 32),
     (WARP_TEAM_MAX_PER_SM * H100_SMS + 1, 1, 0, 8),
     (16 * H100_SMS, 2, 1, 8),
-    (100_000, 2, 1, 8),
+    (100_000, 2, 1, 1),  # above the one-thread crossover
     (3078, 1, 1, 8),  # the bootstrap refits
     (3078, 3, 3, 32),  # the runtime-R body has the warp layout only
 ])
@@ -177,17 +179,72 @@ def test_team_size_documented_choices(B, jr, jc, team):
     assert team_size(B, H100_SMS, jr, jc) == team
 
 
+@pytest.mark.parametrize("B,sym,team", [
+    (LANE_LAYOUT_MIN_PER_SM * H100_SMS, True, 1),  # at the crossover
+    (LANE_LAYOUT_MIN_PER_SM * H100_SMS + 1, True, 1),
+    (LANE_LAYOUT_MIN_PER_SM * H100_SMS - 1, True, 8),  # just below it
+    (65_536, True, 1),  # the bench's primary batch
+    (65_536, False, 8),  # the dense-S body keeps the teams
+    (LANE_LAYOUT_MIN_PER_SM * H100_SMS, False, 8),
+    (16, False, 32),
+])
+def test_team_size_one_thread_crossover(B, sym, team):
+    assert team_size(B, H100_SMS, 1, 1, sym) == team
+
+
+@pytest.mark.parametrize("jr,jc,sym,have", [
+    (1, 1, True, (32, 8, 1)),
+    (2, 3, True, (32, 8, 1)),
+    (1, 1, False, (32, 8)),
+    (3, 3, True, (32,)),  # R = 9: the runtime-R body
+    (3, 3, False, (32,)),
+])
+def test_layouts_of_each_body(jr, jc, sym, have):
+    assert layouts(jr, jc, sym) == have
+    assert team_size(65_536, H100_SMS, jr, jc, sym) in have
+
+
+@pytest.mark.parametrize("jr,jc,sym,team", [
+    (1, 1, True, 4),  # not a layout of TEAMS
+    (1, 1, True, 16),
+    (1, 1, False, 1),  # the dense-S body has no one-thread layout
+    (3, 3, True, 8),  # the runtime-R body has the warp only
+    (3, 3, True, 1),
+])
+def test_launch_refuses_a_layout_the_body_lacks(jr, jc, sym, team):
+    """The refusal comes before any device work (here on CPU tensors)."""
+    assert set(TEAMS) == {32, 8, 1}
+    _, torch_in = _case(jr, jc, "shared", torch.float64, n=8)
+    with pytest.raises(ValueError, match="team must be one of"):
+        _launch(**torch_in, sym=sym, team=team)
+
+
+@pytest.mark.parametrize("layout,B", [("grouped", 18), ("shared", 7)])
+def test_layout_sweep_inputs_and_head_rows(layout, B):
+    """The sweep's inputs and the first rows it holds against the plain
+    version: the plain version on the head equals its first rows on all."""
+    from mind_the_gaps_tpu_torch.ops.layout_sweep import _head, inputs
+
+    args = inputs(B, layout, torch.float64, device="cpu", n=40)
+    assert args["repeats"] == (6 if layout == "grouped" else 1)
+    assert tuple(args["y"].shape) == ((B // 6, 40) if layout == "grouped" else (40,))
+    m = 6
+    full = celerite_log_likelihood_plain(**args)
+    torch.testing.assert_close(celerite_log_likelihood_plain(**_head(args, m)), full[:m], rtol=0, atol=0)
+
+
 def test_team_size_selects_only_existing_bodies():
     for sms in (1, 66, 132):
-        for B in (1, 2, 31, 32, 33, 100, 263, 264, 265, 528, 529, 1000, 3078, 100_000):
+        for B in (1, 2, 31, 32, 33, 100, 263, 264, 265, 528, 529, 1000, 3078, 12_294, 65_536, 100_000):
             for jr in range(9):
                 for jc in range(6):
                     if jr + 2 * jc == 0:
                         continue
-                    team = team_size(B, sms, jr, jc)
-                    assert team in TEAMS
-                    if team != 32:  # only the compile-time bodies have these
-                        assert (jr, jc) in STATIC_WIDTHS
+                    for sym in (True, False):
+                        team = team_size(B, sms, jr, jc, sym)
+                        assert team in layouts(jr, jc, sym)
+                        if team != 32:  # only the compile-time bodies have these
+                            assert (jr, jc) in STATIC_WIDTHS
 
 
 def test_static_widths_match_the_kernel_source():
@@ -370,8 +427,32 @@ def test_non_pd_gives_minus_inf_from_every_layout_on_card(cuda, jr, jc):
     c = torch_in["coeffs"]
     torch_in["coeffs"] = c._replace(ar=c.ar.clone().index_fill_(0, torch.tensor([0, 1]), -100.0))
     on_card = _on_card(torch_in, cuda)
-    teams = TEAMS if (jr, jc) in STATIC_WIDTHS else (32,)
-    outs = [_launch(**on_card, sym=sym, team=team) for team in teams for sym in (True, False)]
+    outs = [_launch(**on_card, sym=sym, team=team) for sym in (True, False) for team in layouts(jr, jc, sym)]
     for out in outs:
         out = out.cpu().numpy()
         assert out[0] == out[1] == -np.inf and np.all(np.isfinite(out[2:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,dtype", [("shared", torch.float64), ("grouped", torch.float32),
+                                          ("per", torch.float64), ("shared", torch.float32)])
+@pytest.mark.parametrize("jr,jc", [(1, 0), (1, 1), (0, 2), (2, 3)])
+def test_one_thread_layout_matches_plain_and_teams_on_card(cuda, jr, jc, layout, dtype):
+    """L = 1 against the plain version (the tolerances above, the same -inf
+    rows) and against the 8-lane layout, which runs the same operations in
+    the same order: equal within the tolerance, and counted when the bits
+    differ."""
+    _, torch_in = _case(jr, jc, layout, dtype, seed=12)
+    c = torch_in["coeffs"]
+    if jr:
+        torch_in["coeffs"] = c._replace(ar=c.ar.clone().index_fill_(0, torch.tensor([3]), -100.0))
+    on_card = _on_card(torch_in, cuda)
+    ref = celerite_log_likelihood_plain(**on_card)
+    before = celerite_log_likelihood.team_launches[1]
+    one = _launch(**on_card, team=1)
+    eight = _launch(**on_card, team=8)
+    torch.cuda.synchronize()
+    assert celerite_log_likelihood.team_launches[1] == before + 1
+    assert torch.equal(torch.isfinite(one), torch.isfinite(ref))
+    torch.testing.assert_close(one, ref, **_tol(dtype))
+    torch.testing.assert_close(one, eight, **_tol(dtype))
