@@ -1,0 +1,9 @@
+"""The refits' celerite kernel launches a bootstrap simulation, from the
+op's launch counter over the window's calls (the refine's two a chunk
+taken out).  The plain version on a host counts none: nothing to read."""
+
+
+def read(ctx):
+    sims = sum(r["sims"] for r in ctx.records)
+    launches = sum(r["refit_launches"] for r in ctx.records)
+    return launches / sims if sims and launches > 0 else None

@@ -1,0 +1,8 @@
+"""Bootstrap simulations completed over the window, per second: each
+generated, refit under both models and refined (host clock, from the
+window's start to the end of its last call)."""
+
+
+def read(ctx):
+    sims = sum(r["sims"] for r in ctx.records)
+    return sims / ctx.window_s if sims else None
