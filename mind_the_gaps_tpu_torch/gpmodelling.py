@@ -23,7 +23,6 @@ parameters when the mean is fitted.
 from __future__ import annotations
 
 import math
-import time
 import warnings
 from typing import List, Optional, Tuple
 
@@ -31,6 +30,7 @@ import numpy as np
 import torch
 from scipy.optimize import minimize
 
+from mind_the_gaps_tpu_torch import tracing
 from mind_the_gaps_tpu_torch.lightcurves import GappyLightcurve
 from mind_the_gaps_tpu_torch.models.mean_models import (
     ConstantModel,
@@ -463,6 +463,7 @@ class GPModelling:
             return gather(outs, thetas.device)
         return log_prob
 
+    @tracing.traced("gp.derive_posteriors")
     def derive_posteriors(
         self,
         initial_chain_params=None,
@@ -487,7 +488,14 @@ class GPModelling:
         celerite kernel's launches of the sampling (``"sampling_launches"``),
         the shards of the sampler's evaluations (``"mesh_shards"``, 1 without
         a mesh) and each shard's celerite calls (``"shard_launches"``, a list:
-        a kernel launch each on a card).
+        a kernel launch each on a card).  While a ``torch.profiler`` session
+        runs, the call records ``tracing`` spans: ``gp.derive_posteriors``,
+        its two phases ``gp.map_fit`` and ``gp.sampling`` (the timers of
+        ``map_fit_s`` and ``sampling_s``), and under the sampling one
+        ``sampler.segment`` a ``convergence_steps`` segment (its half-steps
+        ``sampler.half_step``, each with its ``sampler.log_prob``), one
+        ``sampler.autocorr`` a convergence check (the host waits there) and
+        ``gp.chain_copy``, the chain's copy to the host.
 
         ``fast``: explore in float32 and recompute the reported
         log-probabilities of the kept samples in float64, both through the
@@ -516,92 +524,94 @@ class GPModelling:
             raise ValueError("derive_posteriors runs in one process; its mesh cannot span processes")
         if seed is not None:
             self._generator = torch.Generator(self.device).manual_seed(int(seed))
-        t_start = time.perf_counter()
         self.timings = {}
-        if initial_chain_params is None:
-            initial_params = self.fit(self.initial_params).x if fit else self.initial_params
-            initial_chain_params = self.spread_walkers(
-                chains * walkers, initial_params, np.array(self.get_parameter_bounds(), dtype=object),
-                rng=np.random.default_rng(seed) if seed is not None else None,
-            )
-            if chains > 1:
-                initial_chain_params = initial_chain_params.reshape(chains, walkers, -1)
-        self.timings["map_fit_s"] = time.perf_counter() - t_start
-        t_start, launches = time.perf_counter(), celerite_log_likelihood.launches
-        initial_chain_params = np.asarray(initial_chain_params, dtype=float)
-        if chains > 1 and (initial_chain_params.ndim != 3 or initial_chain_params.shape[0] != chains):
-            raise ValueError("with chains > 1, initial_chain_params must have shape (chains, walkers, ndim)")
-        pooled = int(np.prod(initial_chain_params.shape[:-1]))
-        if mesh is not None and initial_chain_params.shape[0] % mesh.size != 0:
-            warnings.warn(
-                "derive_posteriors mesh mode needs the leading chain axis "
-                f"({initial_chain_params.shape[0]}) to divide the device count "
-                f"({mesh.size}); running unsharded"
-            )
-            mesh = None
-        shard_calls = [0] * (1 if mesh is None else mesh.size)
-        team = None if mesh is None else batch_team(self.kernel, pooled // 2, self.device)
-        log_prob = self._sampler_log_prob(mesh, team, shard_calls)
+        with tracing.phase("gp.map_fit", self.timings, "map_fit_s"):
+            if initial_chain_params is None:
+                initial_params = self.fit(self.initial_params).x if fit else self.initial_params
+                initial_chain_params = self.spread_walkers(
+                    chains * walkers, initial_params, np.array(self.get_parameter_bounds(), dtype=object),
+                    rng=np.random.default_rng(seed) if seed is not None else None,
+                )
+                if chains > 1:
+                    initial_chain_params = initial_chain_params.reshape(chains, walkers, -1)
+        with tracing.phase("gp.sampling", self.timings, "sampling_s"):
+            launches = celerite_log_likelihood.launches
+            initial_chain_params = np.asarray(initial_chain_params, dtype=float)
+            if chains > 1 and (initial_chain_params.ndim != 3 or initial_chain_params.shape[0] != chains):
+                raise ValueError("with chains > 1, initial_chain_params must have shape (chains, walkers, ndim)")
+            pooled = int(np.prod(initial_chain_params.shape[:-1]))
+            if mesh is not None and initial_chain_params.shape[0] % mesh.size != 0:
+                warnings.warn(
+                    "derive_posteriors mesh mode needs the leading chain axis "
+                    f"({initial_chain_params.shape[0]}) to divide the device count "
+                    f"({mesh.size}); running unsharded"
+                )
+                mesh = None
+            shard_calls = [0] * (1 if mesh is None else mesh.size)
+            team = None if mesh is None else batch_team(self.kernel, pooled // 2, self.device)
+            log_prob = self._sampler_log_prob(mesh, team, shard_calls)
 
-        seg_dtype = torch.float32 if fast else torch.float64
-        state = torch.as_tensor(initial_chain_params, dtype=seg_dtype, device=self.device)
-        chain_buf = state.new_zeros((max_steps, pooled, self._ndim))
-        lp_buf = state.new_zeros((max_steps, pooled))
+            seg_dtype = torch.float32 if fast else torch.float64
+            state = torch.as_tensor(initial_chain_params, dtype=seg_dtype, device=self.device)
+            chain_buf = state.new_zeros((max_steps, pooled, self._ndim))
+            lp_buf = state.new_zeros((max_steps, pooled))
 
-        self.converged = False
-        self._autocorr = []
-        old_tau = np.inf
-        iteration = 0
-        tau = np.full(self._ndim, np.inf)
-        while iteration < max_steps:
-            steps = min(convergence_steps, max_steps - iteration)
-            sampler_fn = sample_ensemble_grouped if state.dim() == 3 else sample_ensemble_impl
-            chain, lps, acc, state = sampler_fn(log_prob, state, steps, generator=self._generator)
-            chain_buf[iteration : iteration + steps] = chain.reshape(steps, pooled, self._ndim)
-            lp_buf[iteration : iteration + steps] = lps.reshape(steps, pooled)
-            iteration += steps
-            tau = integrated_autocorr_time_masked(chain_buf, iteration).cpu().numpy()
-            self._autocorr.append(np.mean(tau))
-            if progress:
-                print(f"step {iteration}/{max_steps} (accept {float(acc):.2f})", flush=True)
-            if np.all(tau * 100 < iteration) and np.all(np.abs(old_tau - tau) / tau < 0.01) and converge:
+            self.converged = False
+            self._autocorr = []
+            old_tau = np.inf
+            iteration = 0
+            tau = np.full(self._ndim, np.inf)
+            while iteration < max_steps:
+                steps = min(convergence_steps, max_steps - iteration)
+                sampler_fn = sample_ensemble_grouped if state.dim() == 3 else sample_ensemble_impl
+                with tracing.span("sampler.segment", steps=steps):
+                    chain, lps, acc, state = sampler_fn(log_prob, state, steps, generator=self._generator)
+                    chain_buf[iteration : iteration + steps] = chain.reshape(steps, pooled, self._ndim)
+                    lp_buf[iteration : iteration + steps] = lps.reshape(steps, pooled)
+                iteration += steps
+                with tracing.span("sampler.autocorr"):
+                    tau = integrated_autocorr_time_masked(chain_buf, iteration).cpu().numpy()
+                self._autocorr.append(np.mean(tau))
                 if progress:
-                    print("Convergence reached after %d samples!" % iteration)
-                self.converged = True
-                break
-            old_tau = tau
+                    print(f"step {iteration}/{max_steps} (accept {float(acc):.2f})", flush=True)
+                if np.all(tau * 100 < iteration) and np.all(np.abs(old_tau - tau) / tau < 0.01) and converge:
+                    if progress:
+                        print("Convergence reached after %d samples!" % iteration)
+                    self.converged = True
+                    break
+                old_tau = tau
 
-        sampler = ChainResult(
-            chain_buf[:iteration].cpu().double().numpy(),
-            lp_buf[:iteration].cpu().double().numpy(),
-        )
-        self._tau = tau
-        mean_tau = np.mean(tau)
-        if not np.isfinite(mean_tau):
-            warnings.warn("Autocorrelation time is not finite (stuck chains?); using conservative burn-in")
-            mean_tau = sampler.iteration / 10.0
-            self._tau = np.where(np.isfinite(tau), tau, sampler.iteration)
-        if not self.converged:
-            warnings.warn(f"The chains did not converge after {sampler.iteration} iterations!")
-            thin = max(int(mean_tau / 4), 1)
-            discard = int(mean_tau) * 5
-        else:
-            discard = int(mean_tau * 40)
-            if discard > max_steps:
-                discard = int(mean_tau * 10)
-            thin = max(int(mean_tau / 2), 1)
-        discard = min(discard, sampler.iteration - 1)
+            with tracing.span("gp.chain_copy"):
+                sampler = ChainResult(
+                    chain_buf[:iteration].cpu().double().numpy(),
+                    lp_buf[:iteration].cpu().double().numpy(),
+                )
+            self._tau = tau
+            mean_tau = np.mean(tau)
+            if not np.isfinite(mean_tau):
+                warnings.warn("Autocorrelation time is not finite (stuck chains?); using conservative burn-in")
+                mean_tau = sampler.iteration / 10.0
+                self._tau = np.where(np.isfinite(tau), tau, sampler.iteration)
+            if not self.converged:
+                warnings.warn(f"The chains did not converge after {sampler.iteration} iterations!")
+                thin = max(int(mean_tau / 4), 1)
+                discard = int(mean_tau) * 5
+            else:
+                discard = int(mean_tau * 40)
+                if discard > max_steps:
+                    discard = int(mean_tau * 10)
+                thin = max(int(mean_tau / 2), 1)
+            discard = min(discard, sampler.iteration - 1)
 
-        self._loglikelihoods = sampler.get_log_prob(discard=discard, thin=thin, flat=True)
-        self._mcmc_samples = sampler.get_chain(discard=discard, thin=thin, flat=True)
-        if fast and len(self._mcmc_samples):
-            # float64 log-probabilities at the float32-explored samples
-            flat = torch.as_tensor(self._mcmc_samples, dtype=torch.float64, device=self.device)
-            self._loglikelihoods = torch.cat(
-                [self.log_prob_batch(flat[s : s + 4096]) for s in range(0, flat.shape[0], 4096)]
-            ).cpu().numpy()
-        self._sampler = sampler
-        self.timings["sampling_s"] = time.perf_counter() - t_start
+            self._loglikelihoods = sampler.get_log_prob(discard=discard, thin=thin, flat=True)
+            self._mcmc_samples = sampler.get_chain(discard=discard, thin=thin, flat=True)
+            if fast and len(self._mcmc_samples):
+                # float64 log-probabilities at the float32-explored samples
+                flat = torch.as_tensor(self._mcmc_samples, dtype=torch.float64, device=self.device)
+                self._loglikelihoods = torch.cat(
+                    [self.log_prob_batch(flat[s : s + 4096]) for s in range(0, flat.shape[0], 4096)]
+                ).cpu().numpy()
+            self._sampler = sampler
         self.timings["sampling_launches"] = celerite_log_likelihood.launches - launches
         self.timings["mesh_shards"] = len(shard_calls)
         self.timings["shard_launches"] = shard_calls

@@ -35,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mind_the_gaps_tpu_torch import tracing
 from mind_the_gaps_tpu_torch.gpmodelling import GPModelling, synchronize
 from mind_the_gaps_tpu_torch.lightcurves import GappyLightcurve
 from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood
@@ -49,6 +50,7 @@ from mind_the_gaps_tpu_torch.parallel import (
     process_any,
 )
 from mind_the_gaps_tpu_torch.sampler.ensemble import stretch_draws, stretch_half
+from mind_the_gaps_tpu_torch.simulator.core import e13_adjust_batch
 from mind_the_gaps_tpu_torch.solver.batched import batched_log_prob_fn
 
 __all__ = [
@@ -259,8 +261,10 @@ def batched_max_loglike(
     rows; the results are gathered (``process_allgather``), so every process
     returns all G rows.  ``batched_max_loglike.shard_launches`` then holds
     the likelihood calls of each of this process's mesh positions (one
-    kernel launch each on a card; one entry without a mesh).  Returns
-    (best_lp (G,), best_x (G, D)) on the device of ``ys``.
+    kernel launch each on a card; one entry without a mesh), and
+    ``batched_max_loglike.steps`` the stretch-move steps the call took (in
+    "shard_map" mode the sum of its shards' runs).  Returns (best_lp (G,),
+    best_x (G, D)) on the device of ``ys``.
     """
     if spmd not in ("gspmd", "shard_map"):
         raise ValueError(f"spmd must be 'gspmd' or 'shard_map', not {spmd!r}")
@@ -274,49 +278,54 @@ def batched_max_loglike(
     half = walkers // 2
     if 2 * half != walkers:
         raise ValueError("walkers must be even")
-    team = None if mesh is None else batch_team(kernel, G * half, lead)
-    mesh = Mesh((lead,)) if mesh is None else mesh
-    bounds = np.asarray(kernel.get_parameter_bounds(), dtype=np.float64)
-    lo = torch.as_tensor(bounds[:, 0], dtype=dtype, device=lead)
-    hi = torch.as_tensor(bounds[:, 1], dtype=dtype, device=lead)
-    base = torch.as_tensor(theta0, device=lead).to(dtype)
-    base = base[:, None, :] if base.dim() == 2 else base
-    noise = torch.randn((G, walkers, nk), generator=generator, dtype=dtype, device=lead)
-    init = base + base.abs() * percent * noise
-    span_lo = torch.where(torch.isfinite(lo), lo + 0.05 * lo.abs(), lo)
-    span_hi = torch.where(torch.isfinite(hi), hi - 0.05 * hi.abs(), hi)
-    state = torch.minimum(torch.maximum(init, span_lo), span_hi)
-    data_means = ys.to(dtype).mean(1)  # over the whole batch, for every shard
+    with tracing.span("refits.run", rows=G, params=nk):
+        team = None if mesh is None else batch_team(kernel, G * half, lead)
+        mesh = Mesh((lead,)) if mesh is None else mesh
+        bounds = np.asarray(kernel.get_parameter_bounds(), dtype=np.float64)
+        lo = torch.as_tensor(bounds[:, 0], dtype=dtype, device=lead)
+        hi = torch.as_tensor(bounds[:, 1], dtype=dtype, device=lead)
+        base = torch.as_tensor(theta0, device=lead).to(dtype)
+        base = base[:, None, :] if base.dim() == 2 else base
+        noise = torch.randn((G, walkers, nk), generator=generator, dtype=dtype, device=lead)
+        init = base + base.abs() * percent * noise
+        span_lo = torch.where(torch.isfinite(lo), lo + 0.05 * lo.abs(), lo)
+        span_hi = torch.where(torch.isfinite(hi), hi - 0.05 * hi.abs(), hi)
+        state = torch.minimum(torch.maximum(init, span_lo), span_hi)
+        data_means = ys.to(dtype).mean(1)  # over the whole batch, for every shard
 
-    runs, launches = [], [0] * len(mesh.devices)  # an empty block has no run and no launches
-    blocks = torch.tensor_split(torch.arange(G), mesh.size)
-    for i, (k, dev) in enumerate(zip(mesh.local_positions, mesh.devices)):
-        if len(blocks[k]):
-            r = slice(int(blocks[k][0]), int(blocks[k][-1]) + 1)
-            log_prob = batched_log_prob_fn(kernel, t.to(dev), ys[r].to(dev), diags[r].to(dev), repeats=half,
-                                           dtype=dtype, team=team, data_means=data_means[r].to(dev))
-            runs.append((i, _ShardRun(log_prob, state[r].to(dev), half, r)))
+        runs, launches = [], [0] * len(mesh.devices)  # an empty block has no run and no launches
+        blocks = torch.tensor_split(torch.arange(G), mesh.size)
+        for i, (k, dev) in enumerate(zip(mesh.local_positions, mesh.devices)):
+            if len(blocks[k]):
+                r = slice(int(blocks[k][0]), int(blocks[k][-1]) + 1)
+                log_prob = batched_log_prob_fn(kernel, t.to(dev), ys[r].to(dev), diags[r].to(dev), repeats=half,
+                                               dtype=dtype, team=team, data_means=data_means[r].to(dev))
+                runs.append((i, _ShardRun(log_prob, state[r].to(dev), half, r)))
 
-    tol = None if early_stop is None else early_stop[0]
-    last_imp, step = -1, 0
-    while step < n_steps and (early_stop is None or step - last_imp < early_stop[1]):
-        u_z, picks, u_acc = stretch_draws(1, (G, half), dtype, lead, generator)
-        improved = [run.step(tuple(d[:, :, run.span].to(run.device) for d in (u_z, picks, u_acc)), a, tol)
-                    for _, run in runs]
-        if tol is not None:
-            moved = any(bool(x) for x in improved)  # the host waits here, after every shard's step
-            if mesh.process_count > 1:
-                moved = process_any(moved)
-            if moved:
-                last_imp = step
-        step += 1
-    for i, run in runs:
-        launches[i] = run.launches
-    batched_max_loglike.shard_launches = launches
-    return _gathered([run.best_lp for _, run in runs], [run.best_x for _, run in runs], mesh, state)
+        tol = None if early_stop is None else early_stop[0]
+        last_imp, step = -1, 0
+        while step < n_steps and (early_stop is None or step - last_imp < early_stop[1]):
+            with tracing.span("refits.step"):
+                u_z, picks, u_acc = stretch_draws(1, (G, half), dtype, lead, generator)
+                improved = [run.step(tuple(d[:, :, run.span].to(run.device) for d in (u_z, picks, u_acc)), a, tol)
+                            for _, run in runs]
+                if tol is not None:
+                    with tracing.span("refits.early_stop"):
+                        moved = any(bool(x) for x in improved)  # the host waits here, after every shard's step
+                        if mesh.process_count > 1:
+                            moved = process_any(moved)
+                    if moved:
+                        last_imp = step
+            step += 1
+        for i, run in runs:
+            launches[i] = run.launches
+        batched_max_loglike.shard_launches = launches
+        batched_max_loglike.steps = step
+        return _gathered([run.best_lp for _, run in runs], [run.best_x for _, run in runs], mesh, state)
 
 
 batched_max_loglike.shard_launches = []
+batched_max_loglike.steps = 0
 
 
 def _gathered(lps, xs, mesh, like):
@@ -340,7 +349,7 @@ def _shard_map_max_loglike(kernel, t, ys, diags, theta0, mesh, generators, **kw)
                          f"got {len(generators)}")
     theta0 = torch.as_tensor(theta0)
     blocks = torch.tensor_split(torch.arange(ys.shape[0]), mesh.size)
-    lps, xs, launches = [], [], []
+    lps, xs, launches, steps = [], [], [], 0
     for k, dev, gen in zip(mesh.local_positions, mesh.devices, generators):
         if len(blocks[k]) == 0:
             launches.append(0)
@@ -351,7 +360,9 @@ def _shard_map_max_loglike(kernel, t, ys, diags, theta0, mesh, generators, **kw)
         lps.append(lp)
         xs.append(x)
         launches += batched_max_loglike.shard_launches
+        steps += batched_max_loglike.steps
     batched_max_loglike.shard_launches = launches
+    batched_max_loglike.steps = steps
     dtype = ys.dtype if kw.get("dtype") is None else kw["dtype"]
     return _gathered(lps, xs, mesh, ys.new_empty((0, kernel.ndim), dtype=dtype))
 
@@ -435,6 +446,7 @@ def _broadcast_posteriors(model, lightcurve, kernel, device) -> GPModelling:
     return model
 
 
+@tracing.traced("lrt.protassov_lrt")
 def protassov_lrt(
     lightcurve: GappyLightcurve,
     null_kernel,
@@ -470,7 +482,15 @@ def protassov_lrt(
     chunk ``i``'s refits draw from generators seeded from ``(seed, i)``.
     The refits run in ``sim_dtype`` (float32 by default) and their optima
     are re-evaluated in float64.  ``LRTResult.timings`` holds the seconds
-    of each phase (``checkpoint_s``: the checkpoint writes, 0 without one).  ``pdf``: the flux PDF of the simulations ("Gaussian",
+    of each phase (``map_fit_s`` and ``observed_sampling_s`` of the observed
+    fits run here, ``generation_s``, ``refits_s``, ``refine_s``, and
+    ``checkpoint_s``: the checkpoint writes, 0 without one) and two counts:
+    ``refit_steps``, the stretch-move steps of every ``batched_max_loglike``
+    run of the call (two a chunk), and ``e13_passes``, the passes of
+    ``e13_adjust_batch``'s loop over the call (each ends in a host sync; 0
+    for Gaussian simulations).  Each phase is a ``tracing`` span (under
+    ``lrt.protassov_lrt`` and ``lrt.chunk``), recorded while a
+    ``torch.profiler`` session runs.  ``pdf``: the flux PDF of the simulations ("Gaussian",
     "Lognormal" or "Uniform"); a count of E13 adjustments that hit their
     iteration limit is reported (warned) once, at the end.
     ``keep_simulations``: return every simulated lightcurve in
@@ -525,7 +545,7 @@ def protassov_lrt(
     sim_dtype = None if sim_dtype is None else getattr(torch, str(sim_dtype).replace("torch.", ""))
     refine_f64 = sim_dtype is not None and sim_dtype != torch.float64
     timings = {"map_fit_s": 0.0, "observed_sampling_s": 0.0, "generation_s": 0.0,
-               "refits_s": 0.0, "refine_s": 0.0, "checkpoint_s": 0.0}
+               "refits_s": 0.0, "refine_s": 0.0, "checkpoint_s": 0.0, "refit_steps": 0, "e13_passes": 0}
 
     # 1. observed fits
     def observed(model, kernel, model_seed, name):
@@ -585,59 +605,61 @@ def protassov_lrt(
                                    "the same checkpoint file")
         if chunks_done:
             _mark(f"resuming the bootstrap after chunk {chunks_done}/{n_chunks}")
+    passes = e13_adjust_batch.passes
     for ci in range(chunks_done, n_chunks):
         s0 = ci * chunk
         count = max(0, min((ci + 1) * chunk, nsims) - s0)
         last = matched_estimator and ci == n_chunks - 1
-        clock = time.perf_counter()
-        if count:
-            rates, dys = gen(param_samples[s0 : s0 + count], _derived_generator(device, seed + 1, ci))
-            if keep_simulations:
-                kept_rates.append(rates.cpu().numpy())
-                kept_dy.append(dys.cpu().numpy())
-            if last:
-                rates, dys = torch.cat([rates, obs_y]), torch.cat([dys, obs_dy])
-        else:  # an observed-only final chunk (nsims a multiple of chunk)
-            rates, dys = obs_y, obs_dy
-        starts = null_starts[s0 : s0 + count]
-        if last:
-            starts = np.concatenate([starts, obs_start])
-        diags = (dys + 1e-12) ** 2
-        synchronize(device)
-        timings["generation_s"] += time.perf_counter() - clock
+        with tracing.span("lrt.chunk", rows=count + last):
+            with tracing.phase("lrt.generation", timings, "generation_s"):
+                if count:
+                    rates, dys = gen(param_samples[s0 : s0 + count], _derived_generator(device, seed + 1, ci))
+                    if keep_simulations:
+                        kept_rates.append(rates.cpu().numpy())
+                        kept_dy.append(dys.cpu().numpy())
+                    if last:
+                        rates, dys = torch.cat([rates, obs_y]), torch.cat([dys, obs_dy])
+                else:  # an observed-only final chunk (nsims a multiple of chunk)
+                    rates, dys = obs_y, obs_dy
+                starts = null_starts[s0 : s0 + count]
+                if last:
+                    starts = np.concatenate([starts, obs_start])
+                diags = (dys + 1e-12) ** 2
+                synchronize(device)
 
-        clock = time.perf_counter()
-        nl, nx = batched_max_loglike(
-            null_kernel, t64, rates, diags, starts, walkers=sim_walkers, n_steps=sim_max_steps,
-            dtype=sim_dtype, early_stop=sim_early_stop, generator=_derived_generator(device, seed, ci, 0), mesh=mesh,
-        )
-        al, ax = batched_max_loglike(
-            alt_kernel, t64, rates, diags, _alt_theta0_rows(null_kernel, alt_kernel, starts),
-            walkers=sim_walkers, n_steps=sim_max_steps, dtype=sim_dtype, early_stop=sim_early_stop,
-            generator=_derived_generator(device, seed, ci, 1), mesh=mesh,
-        )
-        synchronize(device)
-        timings["refits_s"] += time.perf_counter() - clock
+            with tracing.phase("lrt.refits", timings, "refits_s"):
+                nl, nx = batched_max_loglike(
+                    null_kernel, t64, rates, diags, starts, walkers=sim_walkers, n_steps=sim_max_steps,
+                    dtype=sim_dtype, early_stop=sim_early_stop, generator=_derived_generator(device, seed, ci, 0),
+                    mesh=mesh,
+                )
+                timings["refit_steps"] += batched_max_loglike.steps
+                al, ax = batched_max_loglike(
+                    alt_kernel, t64, rates, diags, _alt_theta0_rows(null_kernel, alt_kernel, starts),
+                    walkers=sim_walkers, n_steps=sim_max_steps, dtype=sim_dtype, early_stop=sim_early_stop,
+                    generator=_derived_generator(device, seed, ci, 1), mesh=mesh,
+                )
+                timings["refit_steps"] += batched_max_loglike.steps
+                synchronize(device)
 
-        clock = time.perf_counter()
-        if refine_f64:
-            nl = _f64_logprob_chunk(null_kernel, t64, rates, diags, nx.double())
-            al = _f64_logprob_chunk(alt_kernel, t64, rates, diags, ax.double())
-        null_parts.append(nl.double().cpu().numpy())
-        alt_parts.append(al.double().cpu().numpy())
-        timings["refine_s"] += time.perf_counter() - clock
+            with tracing.phase("lrt.refine", timings, "refine_s"):
+                if refine_f64:
+                    nl = _f64_logprob_chunk(null_kernel, t64, rates, diags, nx.double())
+                    al = _f64_logprob_chunk(alt_kernel, t64, rates, diags, ax.double())
+                null_parts.append(nl.double().cpu().numpy())
+                alt_parts.append(al.double().cpu().numpy())
 
-        if checkpoint is not None:
-            clock = time.perf_counter()
-            if rank == 0:
-                tmp = checkpoint + ".tmp.npz"
-                np.savez(tmp, config_crc=np.int64(ckpt_crc), chunks_done=np.int64(ci + 1),
-                         null_done=np.concatenate(null_parts), alt_done=np.concatenate(alt_parts))
-                os.replace(tmp, checkpoint)
-            if spans:
-                barrier()
-            timings["checkpoint_s"] += time.perf_counter() - clock
+            if checkpoint is not None:
+                with tracing.phase("lrt.checkpoint", timings, "checkpoint_s"):
+                    if rank == 0:
+                        tmp = checkpoint + ".tmp.npz"
+                        np.savez(tmp, config_crc=np.int64(ckpt_crc), chunks_done=np.int64(ci + 1),
+                                 null_done=np.concatenate(null_parts), alt_done=np.concatenate(alt_parts))
+                        os.replace(tmp, checkpoint)
+                    if spans:
+                        barrier()
         _mark(f"bootstrap chunk {ci + 1}/{n_chunks} done")
+    timings["e13_passes"] = e13_adjust_batch.passes - passes
 
     null_lls = np.concatenate(null_parts)
     alt_lls = np.concatenate(alt_parts)

@@ -19,6 +19,8 @@ from typing import Callable, Optional
 
 import torch
 
+from mind_the_gaps_tpu_torch import tracing
+
 __all__ = [
     "stretch_draws",
     "stretch_half",
@@ -44,16 +46,18 @@ def stretch_half(active, passive, logp_active, log_prob_fn: Callable, u_z, picks
     """One stretch-move update of ``active`` (..., W, D) against
     ``passive`` (..., Wp, D), with uniforms ``u_z``/``u_acc`` (..., W) and
     partner indices ``picks`` (..., W)."""
-    d = active.shape[-1]
-    z = ((a - 1.0) * u_z + 1.0) ** 2 / a
-    partners = torch.take_along_dim(passive, picks[..., None], dim=-2)
-    proposal = partners + z[..., None] * (active - partners)
-    logp_new = log_prob_fn(proposal)
-    log_accept = (d - 1.0) * torch.log(z) + logp_new - logp_active
-    accept = torch.log(u_acc) < log_accept
-    new_active = torch.where(accept[..., None], proposal, active)
-    new_logp = torch.where(accept, logp_new, logp_active)
-    return new_active, new_logp, accept
+    with tracing.span("sampler.half_step"):
+        d = active.shape[-1]
+        z = ((a - 1.0) * u_z + 1.0) ** 2 / a
+        partners = torch.take_along_dim(passive, picks[..., None], dim=-2)
+        proposal = partners + z[..., None] * (active - partners)
+        with tracing.span("sampler.log_prob"):
+            logp_new = log_prob_fn(proposal)
+        log_accept = (d - 1.0) * torch.log(z) + logp_new - logp_active
+        accept = torch.log(u_acc) < log_accept
+        new_active = torch.where(accept[..., None], proposal, active)
+        new_logp = torch.where(accept, logp_new, logp_active)
+        return new_active, new_logp, accept
 
 
 def _halves(state):

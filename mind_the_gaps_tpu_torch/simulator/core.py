@@ -38,6 +38,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from mind_the_gaps_tpu_torch import tracing
 from mind_the_gaps_tpu_torch.ops import rank_remap, sort_kv
 from mind_the_gaps_tpu_torch.parallel import process_allgather
 from mind_the_gaps_tpu_torch.simulator.noise import GaussianNoise, KraftNoise, PoissonNoise
@@ -137,7 +138,8 @@ def e13_adjust_batch(segments, pdf: str, mean, max_iter: int, rtol=1e-4, atol=1e
     float64 draws.  A row stops (freezes) once its iterate moves by no more
     than ``atol + rtol |x|`` or after ``max_iter`` iterations, so each row's
     result does not depend on the other rows of the chunk.  The loop checks
-    on the host after each iteration whether any row is still active.
+    on the host after each iteration whether any row is still active;
+    ``e13_adjust_batch.passes`` counts its iterations over the process.
     """
     B, m = segments.shape
     namp = m // 2 + 1
@@ -163,15 +165,22 @@ def e13_adjust_batch(segments, pdf: str, mean, max_iter: int, rtol=1e-4, atol=1e
     xadj, order = spectral_step(xprev)
     iters = torch.zeros(B, dtype=torch.int32, device=segments.device)
     active = moved(xadj, xprev) & (max_iter > 0)
-    while bool(active.any()):
-        xnew, order_new = spectral_step(xadj)
-        a = active[:, None]
-        xprev = torch.where(a, xadj, xprev)
-        xadj = torch.where(a, xnew, xadj)
-        order = torch.where(a, order_new, order)
-        iters = torch.where(active, iters + 1, iters)
-        active = active & moved(xadj, xprev) & (iters < max_iter)
+    more = bool(active.any())
+    while more:
+        with tracing.span("sim.e13_pass", rows=B):
+            xnew, order_new = spectral_step(xadj)
+            a = active[:, None]
+            xprev = torch.where(a, xadj, xprev)
+            xadj = torch.where(a, xnew, xadj)
+            order = torch.where(a, order_new, order)
+            iters = torch.where(active, iters + 1, iters)
+            active = active & moved(xadj, xprev) & (iters < max_iter)
+            more = bool(active.any())
+        e13_adjust_batch.passes += 1
     return _apply_rank_permutation(order, sorted_draws), iters
+
+
+e13_adjust_batch.passes = 0
 
 
 def e13_adjust(segment_rates, pdf: str, mean, max_iter: int, std=None, rtol=1e-4, atol=1e-8,
