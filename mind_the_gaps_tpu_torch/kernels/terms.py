@@ -94,6 +94,7 @@ class Term:
             (-np.inf if lo is None else float(lo), np.inf if hi is None else float(hi))
             for lo, hi in bounds
         ]
+        self._bound_tensors = {}  # (dtype, device) -> (lo, hi), made once for each
 
     # ------------------------------------------------------------------ #
     # static structure
@@ -154,10 +155,19 @@ class Term:
     def log_prior(self, theta=None):
         """Celerite convention: flat prior, 0 inside bounds, -inf outside."""
         theta = _as_theta(theta, self._values)
-        lo = theta.new_tensor([b[0] for b in self._bounds])
-        hi = theta.new_tensor([b[1] for b in self._bounds])
+        lo, hi = self._bounds_like(theta)
         inside = torch.all((theta >= lo) & (theta <= hi), dim=-1)
         return torch.where(inside, theta.new_zeros(()), theta.new_full((), -math.inf))
+
+    def _bounds_like(self, theta):
+        """(lo, hi): the bounds as tensors of ``theta``'s dtype and device,
+        made once for each.  Made at every call, they would be a copy from
+        the host, which on a card waits for the stream to drain."""
+        key = (theta.dtype, theta.device)
+        both = self._bound_tensors.get(key)
+        if both is None:
+            both = self._bound_tensors[key] = tuple(theta.new_tensor([b[i] for b in self._bounds]) for i in (0, 1))
+        return both
 
     def psd(self, omega, theta=None):
         """Celerite PSD over angular frequency, sqrt(2/pi) normalization.

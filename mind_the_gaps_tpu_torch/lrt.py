@@ -50,6 +50,7 @@ from mind_the_gaps_tpu_torch.parallel import (
     process_any,
 )
 from mind_the_gaps_tpu_torch.sampler.ensemble import stretch_draws, stretch_half
+from mind_the_gaps_tpu_torch.sampler.graph import StepGraph
 from mind_the_gaps_tpu_torch.simulator.core import e13_adjust_batch
 from mind_the_gaps_tpu_torch.solver.batched import batched_log_prob_fn
 
@@ -197,9 +198,11 @@ class _ShardRun:
 
     def step(self, draws, a, tol):
         """One stretch-move step of both halves from ``draws`` (those of
-        ``stretch_draws(1, (G, half), ...)`` for these rows); returns whether
-        some row improved its best by more than ``tol`` (a 0-d tensor), or
-        None without a ``tol``."""
+        ``stretch_draws(1, (G, half), ...)`` for these rows), written into
+        the run's state, log-probabilities and best, which stay the same
+        tensors (so a CUDA graph can capture the step); returns whether some
+        row improved its best by more than ``tol`` (a 0-d tensor), or None
+        without a ``tol``."""
         u_z, picks, u_acc = draws
         half = self.half
         first, second = self.state[:, :half], self.state[:, half:]
@@ -207,14 +210,56 @@ class _ShardRun:
                                      u_acc[0, 0], a)
         second, lp2, _ = stretch_half(second, first, self.logp[:, half:], self.lp_eval, u_z[0, 1], picks[0, 1],
                                       u_acc[0, 1], a)
-        self.state = torch.cat([first, second], dim=1)
-        self.logp = torch.cat([lp1, lp2], dim=1)
-        i = torch.argmax(self.logp, dim=1)
-        cand_lp, cand_x = self.logp[self.rows, i], self.state[self.rows, i]
+        state = torch.cat([first, second], dim=1)
+        logp = torch.cat([lp1, lp2], dim=1)
+        i = torch.argmax(logp, dim=1)
+        cand_lp, cand_x = logp[self.rows, i], state[self.rows, i]
         improved = None if tol is None else torch.any(cand_lp > self.best_lp + tol)
         better = cand_lp > self.best_lp
-        self.best_lp = torch.where(better, cand_lp, self.best_lp)
-        self.best_x = torch.where(better[:, None], cand_x, self.best_x)
+        best_lp = torch.where(better, cand_lp, self.best_lp)
+        best_x = torch.where(better[:, None], cand_x, self.best_x)
+        for old, new in zip((self.state, self.logp, self.best_lp, self.best_x), (state, logp, best_lp, best_x)):
+            old.copy_(new)
+        return improved
+
+
+def _graph_engages(runs, lead) -> bool:
+    """Whether a ``batched_max_loglike`` call replays its steps as a CUDA
+    graph: when it holds one local run, on the card that holds the data.
+    Several runs in one process (a mesh's shards) and the CPU step eagerly."""
+    return len(runs) == 1 and lead.type == "cuda" and runs[0][1].device == lead
+
+
+class _GraphedStep:
+    """The steps of ``run`` (alone on its card) after its first, each one
+    replay of one captured step (``sampler.graph.StepGraph``): the draws
+    from ``generator``, both half-steps with their likelihood launches, the
+    running best and the early stop's flag, written into the run's tensors.
+    Each replay moves the launch counters as the eager step does."""
+
+    def __init__(self, run, shape, dtype, generator, a, tol):
+        op = celerite_log_likelihood
+        before = op.launches, dict(op.team_launches), run.launches
+
+        def step():
+            draws = stretch_draws(1, shape, dtype, run.device, generator)
+            return run.step(tuple(d[:, :, run.span] for d in draws), a, tol)
+
+        self.run, self.graph = run, StepGraph(step, run.device, generator)
+        # the capture ran the step's Python, not its work: give its counts back, add them at each replay
+        self.launches, self.run_launches = op.launches - before[0], run.launches - before[2]
+        self.team_launches = {k: n - before[1][k] for k, n in op.team_launches.items()}
+        op.launches, run.launches = before[0], before[2]
+        op.team_launches.update(before[1])
+
+    def __call__(self):
+        """One step; the improvement flag (None without a ``tol``)."""
+        improved = self.graph.replay()
+        op = celerite_log_likelihood
+        op.launches += self.launches
+        for k, n in self.team_launches.items():
+            op.team_launches[k] += n
+        self.run.launches += self.run_launches
         return improved
 
 
@@ -235,6 +280,16 @@ def batched_max_loglike(
     consecutive steps (checked on the host, one device sync per
     step); ``patience >= n_steps`` reproduces the fixed budget exactly,
     since each step's draws do not depend on the stopping rule.
+
+    A run that is alone on its card (no mesh, a mesh of one device, this
+    process's one position of a process mesh, a "shard_map" shard) takes its
+    first step eagerly, captures the next as a CUDA graph (``sampler.graph``)
+    and replays it for every step after: the draws from ``generator``, both
+    half-steps with their kernel launches, the running best and the early
+    stop's flag, one launch of the graph a step, the host reading the flag
+    as before.  The replays give the eager steps' results bit for bit.  On
+    the CPU and over several "gspmd" shards in one process every step runs
+    eagerly.
 
     ``mesh`` (``parallel.Mesh``): the G rows are cut into ``mesh.size``
     contiguous blocks (``torch.tensor_split``, so they may be uneven), block
@@ -263,7 +318,8 @@ def batched_max_loglike(
     the likelihood calls of each of this process's mesh positions (one
     kernel launch each on a card; one entry without a mesh), and
     ``batched_max_loglike.steps`` the stretch-move steps the call took (in
-    "shard_map" mode the sum of its shards' runs).  Returns (best_lp (G,),
+    "shard_map" mode the sum of its shards' runs), ``.graph_steps`` those of
+    them that were graph replays.  Returns (best_lp (G,),
     best_x (G, D)) on the device of ``ys``.
     """
     if spmd not in ("gspmd", "shard_map"):
@@ -303,12 +359,20 @@ def batched_max_loglike(
                 runs.append((i, _ShardRun(log_prob, state[r].to(dev), half, r)))
 
         tol = None if early_stop is None else early_stop[0]
-        last_imp, step = -1, 0
+        graphed = _graph_engages(runs, lead)
+        last_imp, step, replay, replayed = -1, 0, None, 0
         while step < n_steps and (early_stop is None or step - last_imp < early_stop[1]):
+            if graphed and step > 0 and replay is None:  # step 0 ran eagerly: the capture's warm-up
+                with tracing.span("refits.capture"):
+                    replay = _GraphedStep(runs[0][1], (G, half), dtype, generator, a, tol)
             with tracing.span("refits.step"):
-                u_z, picks, u_acc = stretch_draws(1, (G, half), dtype, lead, generator)
-                improved = [run.step(tuple(d[:, :, run.span].to(run.device) for d in (u_z, picks, u_acc)), a, tol)
-                            for _, run in runs]
+                if replay is not None:
+                    improved = [replay()]
+                    replayed += 1
+                else:
+                    u_z, picks, u_acc = stretch_draws(1, (G, half), dtype, lead, generator)
+                    improved = [run.step(tuple(d[:, :, run.span].to(run.device) for d in (u_z, picks, u_acc)), a,
+                                         tol) for _, run in runs]
                 if tol is not None:
                     with tracing.span("refits.early_stop"):
                         moved = any(bool(x) for x in improved)  # the host waits here, after every shard's step
@@ -321,11 +385,13 @@ def batched_max_loglike(
             launches[i] = run.launches
         batched_max_loglike.shard_launches = launches
         batched_max_loglike.steps = step
+        batched_max_loglike.graph_steps = replayed
         return _gathered([run.best_lp for _, run in runs], [run.best_x for _, run in runs], mesh, state)
 
 
 batched_max_loglike.shard_launches = []
 batched_max_loglike.steps = 0
+batched_max_loglike.graph_steps = 0
 
 
 def _gathered(lps, xs, mesh, like):
@@ -349,7 +415,7 @@ def _shard_map_max_loglike(kernel, t, ys, diags, theta0, mesh, generators, **kw)
                          f"got {len(generators)}")
     theta0 = torch.as_tensor(theta0)
     blocks = torch.tensor_split(torch.arange(ys.shape[0]), mesh.size)
-    lps, xs, launches, steps = [], [], [], 0
+    lps, xs, launches, steps, graph_steps = [], [], [], 0, 0
     for k, dev, gen in zip(mesh.local_positions, mesh.devices, generators):
         if len(blocks[k]) == 0:
             launches.append(0)
@@ -361,8 +427,10 @@ def _shard_map_max_loglike(kernel, t, ys, diags, theta0, mesh, generators, **kw)
         xs.append(x)
         launches += batched_max_loglike.shard_launches
         steps += batched_max_loglike.steps
+        graph_steps += batched_max_loglike.graph_steps
     batched_max_loglike.shard_launches = launches
     batched_max_loglike.steps = steps
+    batched_max_loglike.graph_steps = graph_steps
     dtype = ys.dtype if kw.get("dtype") is None else kw["dtype"]
     return _gathered(lps, xs, mesh, ys.new_empty((0, kernel.ndim), dtype=dtype))
 
@@ -484,9 +552,10 @@ def protassov_lrt(
     are re-evaluated in float64.  ``LRTResult.timings`` holds the seconds
     of each phase (``map_fit_s`` and ``observed_sampling_s`` of the observed
     fits run here, ``generation_s``, ``refits_s``, ``refine_s``, and
-    ``checkpoint_s``: the checkpoint writes, 0 without one) and two counts:
+    ``checkpoint_s``: the checkpoint writes, 0 without one) and three counts:
     ``refit_steps``, the stretch-move steps of every ``batched_max_loglike``
-    run of the call (two a chunk), and ``e13_passes``, the passes of
+    run of the call (two a chunk), ``refit_graph_steps``, those of them
+    replayed as a CUDA graph, and ``e13_passes``, the passes of
     ``e13_adjust_batch``'s loop over the call (each ends in a host sync; 0
     for Gaussian simulations).  Each phase is a ``tracing`` span (under
     ``lrt.protassov_lrt`` and ``lrt.chunk``), recorded while a
@@ -545,7 +614,8 @@ def protassov_lrt(
     sim_dtype = None if sim_dtype is None else getattr(torch, str(sim_dtype).replace("torch.", ""))
     refine_f64 = sim_dtype is not None and sim_dtype != torch.float64
     timings = {"map_fit_s": 0.0, "observed_sampling_s": 0.0, "generation_s": 0.0,
-               "refits_s": 0.0, "refine_s": 0.0, "checkpoint_s": 0.0, "refit_steps": 0, "e13_passes": 0}
+               "refits_s": 0.0, "refine_s": 0.0, "checkpoint_s": 0.0, "refit_steps": 0, "refit_graph_steps": 0,
+               "e13_passes": 0}
 
     # 1. observed fits
     def observed(model, kernel, model_seed, name):
@@ -634,12 +704,14 @@ def protassov_lrt(
                     mesh=mesh,
                 )
                 timings["refit_steps"] += batched_max_loglike.steps
+                timings["refit_graph_steps"] += batched_max_loglike.graph_steps
                 al, ax = batched_max_loglike(
                     alt_kernel, t64, rates, diags, _alt_theta0_rows(null_kernel, alt_kernel, starts),
                     walkers=sim_walkers, n_steps=sim_max_steps, dtype=sim_dtype, early_stop=sim_early_stop,
                     generator=_derived_generator(device, seed, ci, 1), mesh=mesh,
                 )
                 timings["refit_steps"] += batched_max_loglike.steps
+                timings["refit_graph_steps"] += batched_max_loglike.graph_steps
                 synchronize(device)
 
             with tracing.phase("lrt.refine", timings, "refine_s"):

@@ -38,12 +38,17 @@ keeps the teams (``layouts``).  ``team=`` pins a layout: the shards of a
 sharded batch (``parallel``) launch with the layout of the whole batch
 (``batch_team``), so that each row gets the bits it gets there.
 ``_launch`` takes the layout as an argument, for tests that hold each
-layout against the plain version.
+layout against the plain version.  A caller that passes the same data at
+every call (the refits' closure, ``solver.batched.batched_log_prob_fn``)
+prepares it once (``_prepare``: ``dt`` and the batch-last copies) and
+launches through ``_log_likelihood_prepared``, which does no device work
+of its own before the kernel and so can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -169,32 +174,78 @@ def celerite_log_likelihood(coeffs, t, y, diag, mean=None, repeats: int = 1, ext
     return _launch(coeffs, t, y, diag, mean, repeats, extra_diag, sym, team=team)
 
 
-def _launch(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None, sym: bool = True, team=None):
-    """The kernel on CUDA tensors, with ``team`` lanes per likelihood (one
-    of the body's ``layouts``), or ``team_size``'s layout when it is None."""
-    ar = coeffs[0]
+class _Data(NamedTuple):
+    """The data of launches that share it, made once (``_prepare``): the
+    float64 times and ``y`` / ``diag`` in the working dtype as given, the
+    gaps ``dt`` (float64 differences cast to the dtype) and the batch-last
+    copies the kernel reads."""
+
+    t: torch.Tensor
+    y: torch.Tensor
+    diag: torch.Tensor
+    dt: torch.Tensor
+    y_t: torch.Tensor
+    d_t: torch.Tensor
+
+
+def _prepare(t, y, diag, dtype, device) -> _Data:
+    """``_Data`` of ``t`` (N,), ``y`` and ``diag`` ((N,) or (G, N)) in
+    ``dtype`` on ``device``."""
+    t64 = torch.as_tensor(t, dtype=torch.float64, device=device)
+    dt = torch.diff(t64, prepend=t64[:1]).to(dtype).contiguous()
+    y = torch.as_tensor(y, dtype=dtype, device=device)
+    diag = torch.as_tensor(diag, dtype=dtype, device=device)
+    return _Data(t64, y, diag, dt, _batch_last(y), _batch_last(diag))
+
+
+def _checked(coeffs, sym: bool, team):
+    """``check_coefficients``, then the layout and the device of a launch;
+    (B, Jr, Jc)."""
     B, Jr, Jc = check_coefficients(coeffs)
     if team is not None and team not in layouts(Jr, Jc, sym):
         raise ValueError(f"team must be one of {layouts(Jr, Jc, sym)} lanes for this body (Jr={Jr}, Jc={Jc}, "
                          f"sym={sym}), got {team}")
-    if ar.device.type != "cuda":
-        raise ValueError(f"celerite_log_likelihood runs on CPU or CUDA tensors, not {ar.device}")
-    dtype, device = ar.dtype, ar.device
+    if coeffs[0].device.type != "cuda":
+        raise ValueError(f"celerite_log_likelihood runs on CPU or CUDA tensors, not {coeffs[0].device}")
+    return B, Jr, Jc
 
-    t64 = torch.as_tensor(t, dtype=torch.float64, device=device)
-    N = t64.shape[0]
-    dt = torch.diff(t64, prepend=t64[:1]).to(dtype).contiguous()
-    y = torch.as_tensor(y, dtype=dtype, device=device)
-    diag = torch.as_tensor(diag, dtype=dtype, device=device)
+
+def _log_likelihood_prepared(coeffs, data: _Data, mean=None, repeats: int = 1, extra_diag=None, team=None):
+    """``celerite_log_likelihood`` (packed body) on data made once by
+    ``_prepare`` in the coefficients' dtype and device: a caller that passes
+    the same data at every call, as the refits' closure does, builds ``dt``
+    and the batch-last copies once and not at every launch."""
+    if coeffs[0].device.type == "cpu":
+        return celerite_log_likelihood_plain(coeffs, data.t, data.y, data.diag, mean=mean, repeats=repeats,
+                                             extra_diag=extra_diag)
+    return _launch_prepared(coeffs, data, mean, repeats, extra_diag, team=team)
+
+
+def _launch(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None, sym: bool = True, team=None):
+    """The kernel on CUDA tensors, with ``team`` lanes per likelihood (one
+    of the body's ``layouts``), or ``team_size``'s layout when it is None."""
+    ar = coeffs[0]
+    _checked(coeffs, sym, team)
+    return _launch_prepared(coeffs, _prepare(t, y, diag, ar.dtype, ar.device), mean, repeats, extra_diag, sym, team)
+
+
+def _launch_prepared(coeffs, data: _Data, mean=None, repeats: int = 1, extra_diag=None, sym: bool = True,
+                     team=None):
+    """``_launch`` on data made by ``_prepare``."""
+    B, Jr, Jc = _checked(coeffs, sym, team)
+    ar = coeffs[0]
+    dtype, device = ar.dtype, ar.device
+    if data.dt.dtype != dtype or data.dt.device != device:
+        raise ValueError(f"data prepared in {data.dt.dtype} on {data.dt.device}, coefficients {dtype} on {device}")
+    N = data.dt.shape[0]
     mean = None if mean is None else torch.as_tensor(mean, dtype=dtype, device=device).contiguous()
     extra_diag = (
         None if extra_diag is None
         else torch.as_tensor(extra_diag, dtype=dtype, device=device).contiguous()
     )
-    check_layout(B, N, y, diag, repeats, mean, extra_diag)
-    y_cols = 1 if y.dim() == 1 else y.shape[0]
-    d_cols = 1 if diag.dim() == 1 else diag.shape[0]
-    y_t, d_t = _batch_last(y), _batch_last(diag)
+    check_layout(B, N, data.y, data.diag, repeats, mean, extra_diag)
+    y_cols = 1 if data.y.dim() == 1 else data.y.shape[0]
+    d_cols = 1 if data.diag.dim() == 1 else data.diag.shape[0]
     cs = [c.contiguous() for c in coeffs]
 
     out = torch.empty(B, dtype=dtype, device=device)
@@ -205,8 +256,8 @@ def _launch(coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None, sy
     with device_scope(device):
         stream = stream_handle(device)
         rc = _entry(dtype)(
-            Jr, Jc, 0 if sym else 1, team, dt.data_ptr(), y_t.data_ptr(), y_cols, d_t.data_ptr(), d_cols,
-            *(c.data_ptr() for c in cs), _ptr(mean), _ptr(extra_diag),
+            Jr, Jc, 0 if sym else 1, team, data.dt.data_ptr(), data.y_t.data_ptr(), y_cols, data.d_t.data_ptr(),
+            d_cols, *(c.data_ptr() for c in cs), _ptr(mean), _ptr(extra_diag),
             B, N, repeats, out.data_ptr(), stream,
         )
     if rc != 0:

@@ -191,14 +191,18 @@ def batched_log_prob_fn(kernel, t, y, diag, subtract_mean: bool = True, repeats:
     in ``dtype``) where given: the shards of a batch take the means of the
     whole batch's reduction.  ``dtype`` selects the likelihood's precision
     (default: that of ``y``), ``team`` the kernel's layout
-    (``ops.celerite_log_likelihood``)."""
-    from mind_the_gaps_tpu_torch.ops.celerite import celerite_log_likelihood  # it imports this module
+    (``ops.celerite_log_likelihood``).  The data is prepared once, here
+    (``ops.celerite._prepare``: ``dt`` and the kernel's batch-last copies),
+    and each call launches on it, so a call makes no copy of the data and
+    no host-to-device transfer: it can be captured in a CUDA graph."""
+    from mind_the_gaps_tpu_torch.ops.celerite import _log_likelihood_prepared, _prepare  # it imports this module
 
     y = torch.as_tensor(y)
     dtype = y.dtype if dtype is None else dtype
     y = y.to(dtype)
     diag = torch.as_tensor(diag, device=y.device).to(dtype)
     grouped = y.dim() > 1 or diag.dim() > 1
+    data = _prepare(t, y, diag, dtype, y.device)
     if subtract_mean and data_means is None:
         data_means = y.mean() if y.dim() == 1 else y.mean(1)
     means = {}  # batch size -> its (B,) means, built once
@@ -215,8 +219,8 @@ def batched_log_prob_fn(kernel, t, y, diag, subtract_mean: bool = True, repeats:
             if mean is None:
                 mean = data_means.repeat(B) if y.dim() == 1 else data_means.repeat_interleave(repeats)
                 means[B] = mean
-        ll = celerite_log_likelihood(coeffs, t, y, diag, mean=mean, repeats=repeats if grouped else 1,
-                                     extra_diag=jitter, team=team)
+        ll = _log_likelihood_prepared(coeffs, data, mean=mean, repeats=repeats if grouped else 1, extra_diag=jitter,
+                                      team=team)
         return torch.where(torch.isfinite(lp), lp + ll, ll.new_full((), -math.inf))
 
     return log_prob

@@ -128,17 +128,17 @@ def test_batch_team_is_the_whole_batch_layout(monkeypatch):
 
 def test_team_reaches_the_launch(monkeypatch):
     """``batched_log_prob_fn(team=)`` hands the layout to the kernel's launch
-    (the launch is replaced by a recorder; tensors on the meta device take
-    the launch's branch)."""
+    on its prepared data (the launch is replaced by a recorder; tensors on
+    the meta device take the launch's branch)."""
     from mind_the_gaps_tpu_torch.solver.batched import batched_log_prob_fn
 
     seen = []
 
-    def launch(coeffs, t, y, diag, mean, repeats, extra_diag, sym, team):
+    def launch(coeffs, data, mean, repeats, extra_diag, sym=True, team=None):
         seen.append(team)
         return torch.zeros(coeffs[0].shape[0], dtype=coeffs[0].dtype, device=coeffs[0].device)
 
-    monkeypatch.setattr(celerite_op, "_launch", launch)
+    monkeypatch.setattr(celerite_op, "_launch_prepared", launch)
     _, alt = _kernels()
     meta = torch.device("meta")
     t, ys, diags = (x.to(meta) for x in _batch(G=2, n=10))

@@ -10,7 +10,8 @@ with them.
   ``batched_max_loglike`` result equal the unrecorded ones bit for bit.
 - ``timings`` keeps its keys and gains ``refit_steps`` (the refit runs'
   likelihood calls in ``batched_max_loglike.shard_launches``, less two a
-  run, halved: a counter that counts on any device) and ``e13_passes``.
+  run, halved: a counter that counts on any device), ``refit_graph_steps``
+  (0 on the CPU, where no step is a graph replay) and ``e13_passes``.
 - A span shares the profiler's clock: around a ``record_function`` block
   it contains the profiler's event for the block (on the CPU), and on a
   card it contains the runtime's ``cudaLaunchKernel`` and
@@ -192,7 +193,8 @@ def test_recording_changes_no_result(runs):
 def test_lrt_timings_keep_their_keys_and_count_the_steps_and_passes(runs):
     off = runs["off"].timings
     assert set(off) == {"map_fit_s", "observed_sampling_s", "generation_s", "refits_s", "refine_s",
-                        "checkpoint_s", "refit_steps", "e13_passes"}
+                        "checkpoint_s", "refit_steps", "refit_graph_steps", "e13_passes"}
+    assert off["refit_graph_steps"] == 0  # the CPU steps eagerly
     assert all(off[k] > 0 for k in ("generation_s", "refits_s", "refine_s"))
     chunks = -(-(NSIMS + 1) // CHUNK)
     assert len(runs["off_runs"]) == 2 * chunks and all(len(r) == 1 for r in runs["off_runs"])
