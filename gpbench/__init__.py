@@ -14,4 +14,10 @@ covariance term of the plain reference by ``terms/<kind>.py``.  The
 yardstick (data, reference, operation counts and peaks, the profiler
 reading) lives here; from the port it takes only the calls under test,
 their timings and counters, and kernel names.
+
+A cell that the harness runs but ``BENCHMARK.json`` leaves out, because
+its runs spread too widely for a bound, is kept in ``parked/<cell>.json``:
+its entries, and the metrics whose cells it ``joins``.  Putting it back is
+copying those entries; the tests drive it from a copy of the file that has
+it back.
 """

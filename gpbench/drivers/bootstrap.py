@@ -2,10 +2,14 @@
 
 Set-up: the observed null and alternative fits (``derive_posteriors``, the
 configuration's ``observed_max_steps`` x ``observed_walkers``, float64),
-then one warm-up call of one chunk.  A call: ``protassov_lrt(nsims=,
-chunk=, null_model=, alt_model=)`` with the configuration's refits, pdf
-and precisions, keeping its simulations; its seed comes from the run's
-seed and the call's index.  The work of a call is its ``nsims``
+then one warm-up call of one chunk.  Over a mesh of processes (a cell of
+ranks, ``ranks.py``) rank 0 runs the fits and every other rank receives
+their posteriors, as ``protassov_lrt`` shares the fits it runs; every rank
+then makes the same calls over the mesh (each generates every chunk whole
+and refits its own rows; every rank returns the whole result).  A call:
+``protassov_lrt(nsims=, chunk=, null_model=, alt_model=)`` with the
+configuration's refits, pdf and precisions, keeping its simulations; its
+seed comes from the run's seed and the call's index.  The work of a call is its ``nsims``
 simulations (the matched observed row is not counted).
 
 ``correct``: from each call, one simulated row in each of ``STRATA`` equal
@@ -72,20 +76,30 @@ def _lrt(ctx, nsims: int, seed: int):
         s.lc, s.null_k, s.alt_k, nsims=nsims, pdf=cfg["pdf"], chunk=cfg["chunk"], seed=seed,
         sim_max_steps=cfg["sim_max_steps"], sim_walkers=cfg["sim_walkers"], sim_dtype=cfg["precision"]["refits"],
         sim_early_stop=tuple(cfg["sim_early_stop"]), extension_factor=cfg["extension_factor"],
-        null_model=s.null_m, alt_model=s.alt_m, device=ctx.device, keep_simulations=True)
+        null_model=s.null_m, alt_model=s.alt_m, device=ctx.device, keep_simulations=True, mesh=ctx.mesh)
+
+
+def _ranks(ctx) -> bool:
+    """Whether the run is one of several processes (a rank of a mesh)."""
+    return ctx.mesh is not None and ctx.mesh.process_count > 1
 
 
 def setup(ctx):
     from mind_the_gaps_tpu_torch.gpmodelling import GPModelling
+    from mind_the_gaps_tpu_torch.lrt import _broadcast_posteriors
 
     cfg = ctx.config
     t, y, dy, lc = observed(ctx)
     s = ctx.state = SimpleNamespace(t=t, y=y, dy=dy, lc=lc, null_k=kernel(cfg["null"]), alt_k=kernel(cfg["alt"]))
     fitted = []
     for i, kern in enumerate((s.null_k, s.alt_k)):
-        model = GPModelling(lc, kern, device=ctx.device)
-        model.derive_posteriors(fit=True, max_steps=cfg["observed_max_steps"], walkers=cfg["observed_walkers"],
-                                seed=derived_seed(ctx.seed, 1, i))
+        model = None
+        if not _ranks(ctx) or ctx.mesh.process_index == 0:
+            model = GPModelling(lc, kern, device=ctx.device)
+            model.derive_posteriors(fit=True, max_steps=cfg["observed_max_steps"], walkers=cfg["observed_walkers"],
+                                    seed=derived_seed(ctx.seed, 1, i))
+        if _ranks(ctx):
+            model = _broadcast_posteriors(model, lc, kern, ctx.device)
         fitted.append(model)
     s.null_m, s.alt_m = fitted
     _lrt(ctx, cfg["chunk"] - 1, derived_seed(ctx.seed, 2))  # one chunk: every shape of the window
@@ -138,6 +152,15 @@ def call(ctx, index: int) -> dict:
     }
 
 
+def libraries(cfg) -> list:
+    """The port's kernel libraries (``csrc/<name>.cu``) a run launches: the
+    celerite likelihood in float32 (the refits) and float64 (the refine and
+    the observed chains), its gradient (the MAP fits), and the sorts for a
+    pdf other than Gaussian (E13)."""
+    names = ["celerite_loglike_f32", "celerite_loglike_f64", "celerite_grad_f64"]
+    return names + ([] if cfg["pdf"].lower() == "gaussian" else ["bitonic_sort"])
+
+
 def free(ctx):
     """Drop the program's models and simulations (the kept rows stay)."""
     s = ctx.state
@@ -146,13 +169,18 @@ def free(ctx):
 
 
 def launch_shape(ctx, dtype: str, jr: int, jc: int):
-    """(B, data columns) of a celerite launch of a call: a refit half-step
-    (float32) evaluates its rows' walkers / 2 chains each on the row's own
-    data (grouped); the refine (float64) evaluates every row of the chunk
-    once, on its own data."""
+    """(B, data columns) of a celerite launch of a call in this process: a
+    refit half-step (float32) evaluates its rows' walkers / 2 chains each on
+    the row's own data (grouped), over the chunk's rows that this process
+    refits (a rank: its block of the mesh, ``torch.tensor_split``'s); the
+    refine (float64) evaluates every row of the chunk once, on its own data,
+    on every rank."""
     cfg = ctx.config
     if dtype == cfg["precision"]["refits"]:
         rows = cfg["chunk"]
+        if ctx.mesh is not None:
+            blocks = torch.tensor_split(torch.arange(rows), ctx.mesh.size)
+            rows = sum(len(blocks[k]) for k in ctx.mesh.local_positions)
         return rows * (cfg["sim_walkers"] // 2), rows
     return cfg["chunk"], cfg["chunk"]
 

@@ -73,5 +73,23 @@ def skipped_e13():
         segments, torch.zeros(segments.shape[0], dtype=torch.int32, device=segments.device))
 
 
+def dropped_gather():
+    """The exchange between processes left out: the refits' gather
+    (``lrt.process_allgather``) returns this rank's block in every rank's
+    place."""
+    import torch
+    import torch.distributed as dist
+
+    from mind_the_gaps_tpu_torch import lrt
+
+    def own_block(x, tiled=True):
+        x = torch.as_tensor(x)
+        x = x[None] if x.dim() == 0 else x
+        blocks = [x] * (dist.get_world_size() if dist.is_initialized() else 1)
+        return torch.cat(blocks) if tiled else torch.stack(blocks)
+
+    lrt.process_allgather = own_block
+
+
 FAULTS = {f.__name__: f for f in (frozen_refits, shifted_refine, scaled_generation, skipped_e13, frozen_sampler,
-                                  shifted_chain)}
+                                  shifted_chain, dropped_gather)}

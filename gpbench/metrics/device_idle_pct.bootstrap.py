@@ -1,5 +1,5 @@
-"""The share of the traced bootstrap call in which no activity ran on the card, in
-% (profiler)."""
+"""The share of the traced bootstrap call in which no activity ran on the card,
+in % (profiler).  Over ranks: the mean of each card's share."""
 
 
 def read(ctx):

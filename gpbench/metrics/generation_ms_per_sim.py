@@ -1,5 +1,6 @@
 """Milliseconds of simulation (TK95, E13, noise) a bootstrap simulation, from
-``LRTResult.timings["generation_s"]`` over the window's calls."""
+``LRTResult.timings["generation_s"]`` over the window's calls.  Over ranks:
+the mean (a time; every rank generates every chunk whole)."""
 
 
 def read(ctx):

@@ -2,7 +2,10 @@
 chunk: the null's and the alternative's), from the port's counter
 ``LRTResult.timings["refit_steps"]`` over the window's calls.  Read from a
 run on a card; nothing to read on the host (the plain versions stand in
-there) or from a port without the counter."""
+there) or from a port without the counter.  Over ranks: rank 0's (the ranks
+step together: the early stop is voted over them once a step)."""
+
+OVER_RANKS = "rank0"
 
 
 def read(ctx):

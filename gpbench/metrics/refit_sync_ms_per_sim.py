@@ -2,7 +2,7 @@
 early stop, where it waits once a step for the card's answer: the summed
 durations of the port's ``refits.early_stop`` spans in the traced turn over
 the traced turn's simulations.  Nothing to read without a device trace or
-without spans."""
+without spans.  Over ranks: the mean (a time)."""
 from gpbench.spans import host_seconds, traced_spans
 
 

@@ -1,5 +1,6 @@
 """Milliseconds of refits (both models' short chains) a bootstrap simulation,
-from ``LRTResult.timings["refits_s"]`` over the window's calls."""
+from ``LRTResult.timings["refits_s"]`` over the window's calls.  Over ranks:
+the mean (a time)."""
 
 
 def read(ctx):

@@ -7,10 +7,13 @@ mix; the traffic names a driver (``drivers/<driver>.py``) that makes the
 set-up and issues whole calls of the port.  The run:
 
 1. refuses to run (exit 3, no result) without as many CUDA cards as the
-   cell asks for;
+   cell asks for; a cell of four cards runs as its configuration's
+   ``ranks`` processes, one a card (``ranks.py``: the launcher and the
+   rank's run, the steps below on every rank, rank 0 deciding the window
+   and printing);
 2. makes the data and the set-up from ``--seed`` and warms up every shape
-   the window uses (``setup_s``: from the start of the process to the
-   window's start);
+   the window uses (``setup_s``: from the start of the process, the
+   launcher's in a cell of ranks, to the window's start);
 3. issues calls back to back, starting a turn of calls (one, or the
    driver's ``CALLS_PER_TURN`` for a traffic whose calls alternate) only
    while the window is under ``--seconds`` (a closed loop: one script, one
@@ -50,7 +53,7 @@ for _var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
 PACKAGE_DIR = Path(__file__).resolve().parent
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "mind_the_gaps_tpu"})
 
-__all__ = ["main", "run_cell", "load_cell", "load_module", "forbidden_modules"]
+__all__ = ["main", "run_cell", "context", "load_cell", "load_module", "forbidden_modules"]
 
 
 def forbidden_modules() -> list:
@@ -130,6 +133,24 @@ def host_speed() -> dict:
     return {"probe_ms": probe_ms, "cpu_mhz": sum(mhz) / len(mhz) if mhz else None}
 
 
+def context(workload: str, seed: int, seconds: float, trace: bool, *, root, device, dirs=(), overrides=None,
+            control: bool = False, mesh=None):
+    """(the run's context, the cell's driver, the calls of a turn) before the
+    set-up: the cell, its files merged with ``overrides``, and the run's
+    settings.  ``mesh``: the processes' mesh of a rank (``ranks.py``), None
+    in a run of one process."""
+    root = Path(root)
+    dirs = [Path(d) for d in dirs] + [PACKAGE_DIR]
+    cell = load_cell(workload, root, dirs)
+    for key, extra in (overrides or {}).items():
+        getattr(cell, key).update(extra)
+    ctx = SimpleNamespace(cell=cell, config=cell.config, traffic=cell.traffic, limits=cell.limits, seed=int(seed),
+                          seconds=float(seconds), trace=bool(trace), device=device, mesh=mesh, control=control,
+                          dirs=dirs, records=[], traced=None, state=None)
+    driver = load_module(dirs, "drivers", cell.traffic["driver"])
+    return ctx, driver, int(getattr(driver, "CALLS_PER_TURN", 1))
+
+
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, root=".", device=None, dirs=(),
              overrides=None, control: bool = False, process_start: float = None) -> dict:
     """One run of a cell; returns the result (the last line's object).
@@ -142,19 +163,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, root=".",
     control in place of the program (see ``drivers/``)."""
     import torch
 
-    root = Path(root)
-    dirs = [Path(d) for d in dirs] + [PACKAGE_DIR]
-    cell = load_cell(workload, root, dirs)
-    for key, extra in (overrides or {}).items():
-        getattr(cell, key).update(extra)
     device = torch.device(device or "cuda")
     if device.type == "cuda":
         device = torch.device("cuda", 0)
-    ctx = SimpleNamespace(cell=cell, config=cell.config, traffic=cell.traffic, limits=cell.limits, seed=int(seed),
-                          seconds=float(seconds), trace=bool(trace), device=device, control=control, dirs=dirs,
-                          records=[], traced=None, state=None)
-    driver = load_module(dirs, "drivers", cell.traffic["driver"])
-    turn = int(getattr(driver, "CALLS_PER_TURN", 1))
+    ctx, driver, turn = context(workload, seed, seconds, trace, root=root, device=device, dirs=dirs,
+                                overrides=overrides, control=control)
     driver.setup(ctx)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -179,7 +192,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, root=".",
     ctx.memory_peak_bytes = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     if ctx.trace and not failed:
         _traced_turn(ctx, driver, turn)
-    return _result(ctx, driver)
+    _free(ctx, driver)
+    return _result(ctx, driver, _metric_values(ctx, ctx.cell.per_layer if ctx.trace else ctx.cell.end_to_end))
 
 
 def _traced_turn(ctx, driver, turn: int):
@@ -209,14 +223,22 @@ def _metric_values(ctx, metrics):
     return out
 
 
-def _result(ctx, driver) -> dict:
+def _free(ctx, driver):
+    """Drop the program's state once the window and the traced turn are over."""
     import torch
-
-    from gpbench.trace import device_ops, idle_gaps
 
     driver.free(ctx)
     if ctx.device.type == "cuda":
         torch.cuda.empty_cache()
+
+
+def _result(ctx, driver, metrics: dict) -> dict:
+    """The result line's object of a run whose state is freed: ``correct``
+    from the driver's check, beside ``metrics`` (the values to report)."""
+    import torch
+
+    from gpbench.trace import device_ops, idle_gaps
+
     t0 = time.perf_counter()
     checks, problems = driver.check(ctx) if ctx.records else ({}, ["no call completed in the window"])
     calls = ", ".join(f"{r['call_s']:.3f}" for r in ctx.records)
@@ -226,7 +248,6 @@ def _result(ctx, driver) -> dict:
         math.isfinite(c["value"]) and c["value"] <= c["limit"] for c in checks.values())
     for p in problems:
         print(f"gpbench: {p}", file=sys.stderr)
-    metrics = _metric_values(ctx, ctx.cell.per_layer if ctx.trace else ctx.cell.end_to_end)
     device = {"platform": "gpu" if ctx.device.type == "cuda" else ctx.device.type,
               "kind": torch.cuda.get_device_name(ctx.device) if ctx.device.type == "cuda" else "cpu",
               "count": 1, "memory_peak_bytes": int(ctx.memory_peak_bytes)}
@@ -256,15 +277,19 @@ def main(argv=None) -> int:
 
     root = Path.cwd()
     cell = load_cell(args.workload, root, [PACKAGE_DIR])
-    if cell.chips != 1:
-        print(f"gpbench: {args.workload} asks for {cell.chips} cards; this harness runs one-card cells",
-              file=sys.stderr)
-        return 3
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         print(f"gpbench: {args.workload} needs {cell.chips} CUDA card(s); this machine has "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 3
-    result = run_cell(args.workload, args.seed, args.seconds, bool(args.trace), root=root)
+    if cell.chips == 1:
+        result = run_cell(args.workload, args.seed, args.seconds, bool(args.trace), root=root)
+    else:
+        from gpbench.ranks import launch
+
+        rc, result = launch(args.workload, args.seed, args.seconds, bool(args.trace), ranks=cell.config["ranks"],
+                            root=root, start=PROCESS_START)
+        if rc:
+            return rc
     found = forbidden_modules()
     if found:
         print(f"gpbench: the process holds JAX or the JAX package: {', '.join(found)}", file=sys.stderr)

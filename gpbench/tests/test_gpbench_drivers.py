@@ -52,3 +52,14 @@ def test_the_data_depend_on_the_seed_alone():
     assert all(np.array_equal(x, y) for x, y in zip(a, b))
     assert not np.array_equal(a[1], c[1]) and a[0].shape == c[0].shape == (500,)
     assert derived_seed(seed, 3, 0) != derived_seed(seed, 3, 1) and 0 <= derived_seed(seed, 1) < 2**31
+
+
+@pytest.mark.parametrize("config, sort", [("lrt_gauss_n5000_4rank", False), ("lrt_lognormal_n5000", True)])
+def test_the_bootstrap_driver_names_the_libraries_its_runs_launch(config, sort):
+    from gpbench.run import PACKAGE_DIR, load_module
+
+    cfg = json.loads((PACKAGE_DIR / "configs" / f"{config}.json").read_text())
+    names = load_module([PACKAGE_DIR], "drivers", "bootstrap").libraries(cfg)
+    assert all((ROOT / "mind_the_gaps_tpu_torch" / "csrc" / f"{n}.cu").is_file() for n in names)
+    assert {"celerite_loglike_f32", "celerite_loglike_f64", "celerite_grad_f64"} <= set(names)
+    assert ("bitonic_sort" in names) is sort and "fma_chain" not in names

@@ -6,7 +6,8 @@ import pytest
 from gpbench.roofline import launch_bound_s, step_flops
 from gpbench.run import PACKAGE_DIR, load_cell, load_module
 from gpbench.trace import Trace, busy_intervals, busy_seconds, celerite_launches, device_ops, idle_gaps
-from gpbench_tiny import ROOT
+from gpbench_tiny import ROOT, parked_root
+from mind_the_gaps_tpu_torch.parallel import Mesh
 
 K32 = "void celerite::loglike_kernel<float, 1, 1, false, 8>(float const*, float const*, int)"
 K64 = "void celerite::loglike_kernel<double, 1, 0, false, 32>(double const*, double const*, int)"
@@ -21,13 +22,13 @@ def _trace():
     return Trace(device, host, 1.25)
 
 
-def _ctx(cell, records, traced_records=None):
-    c = load_cell(cell, ROOT, [PACKAGE_DIR])
+def _ctx(cell, records, traced_records=None, root=ROOT):
+    c = load_cell(cell, root, [PACKAGE_DIR])
     trace = _trace()
     traced = SimpleNamespace(records=traced_records, trace=trace, busy_s=busy_seconds(trace.device),
                              window_s=trace.window_s)
     return SimpleNamespace(cell=c, config=c.config, traffic=c.traffic, records=records, traced=traced,
-                           setup_s=12.5, window_s=10.0, dirs=[PACKAGE_DIR])
+                           setup_s=12.5, window_s=10.0, dirs=[PACKAGE_DIR], mesh=None)
 
 
 def _read(name, ctx):
@@ -66,10 +67,42 @@ def test_the_bootstrap_readers():
 
 def test_the_refits_count_a_chunk_s_rows():
     c = load_cell("gauss.bootstrap", ROOT, [PACKAGE_DIR])
-    ctx = SimpleNamespace(config=c.config, dirs=[PACKAGE_DIR])
+    ctx = SimpleNamespace(config=c.config, dirs=[PACKAGE_DIR], mesh=None)
     driver = load_module(ctx.dirs, "drivers", "bootstrap")
     assert driver.launch_shape(ctx, "float32", 1, 1) == (512 * 6, 512)
     assert driver.launch_shape(ctx, "float64", 1, 1) == (512, 512)
+    # a rank refits its block of the chunk's rows; every rank refines the whole chunk
+    c4 = load_cell("gauss4.bootstrap", parked_root(), [PACKAGE_DIR])
+    for rank in range(4):
+        ctx = SimpleNamespace(config=c4.config, dirs=[PACKAGE_DIR], mesh=Mesh(("cpu",), process_index=rank,
+                                                                              process_count=4))
+        assert driver.launch_shape(ctx, "float32", 1, 1) == (512 * 6, 512)
+        assert driver.launch_shape(ctx, "float64", 1, 1) == (2048, 2048)
+
+
+def test_the_mesh_wait_reader():
+    records = [{"sims": 63, "timings": {"refit_steps": 200}}, {"sims": 63, "timings": {"refit_steps": 300}}]
+    ctx = _ctx("gauss4.bootstrap", records, traced_records=records, root=parked_root())
+    assert _read("mesh_wait_ms_per_step", ctx) is None  # a run of one process has no vote
+    ctx.traced.process_any_s = [0.001] * 400 + [0.0005] * 100
+    assert _read("mesh_wait_ms_per_step", ctx) == pytest.approx(1e3 * 0.45 / 500)
+
+
+def test_the_readers_reduce_over_ranks_as_their_docstrings_say():
+    from gpbench.ranks import over_ranks, reduction
+
+    cell = load_cell("gauss4.bootstrap", parked_root(), [PACKAGE_DIR])
+    expect = {"sum": 10.0, "mean": 2.5, "rank0": 1.0}
+    said = {"sum": "Over ranks: the sum", "mean": "Over ranks: the mean", "rank0": "Over ranks: rank 0's"}
+    for m in cell.end_to_end + cell.per_layer:
+        module = load_module([PACKAGE_DIR], "metrics", m["name"])
+        how = reduction(module)
+        assert said[how] in " ".join(module.__doc__.split()), m["name"]
+        assert over_ranks(how, [1.0, 2.0, 3.0, 4.0]) == expect[how]
+        assert over_ranks(how, [1.0, None, 3.0, 4.0]) is None  # a rank that read nothing: nothing
+    hows = {m["name"]: reduction(load_module([PACKAGE_DIR], "metrics", m["name"]))
+            for m in cell.per_layer}
+    assert hows["refit_launches_per_sim"] == "sum" and hows["refit_steps_per_refit"] == "rank0"
 
 
 def test_the_observed_readers():
