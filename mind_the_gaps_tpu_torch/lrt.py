@@ -551,13 +551,18 @@ def protassov_lrt(
     The refits run in ``sim_dtype`` (float32 by default) and their optima
     are re-evaluated in float64.  ``LRTResult.timings`` holds the seconds
     of each phase (``map_fit_s`` and ``observed_sampling_s`` of the observed
-    fits run here, ``generation_s``, ``refits_s``, ``refine_s``, and
-    ``checkpoint_s``: the checkpoint writes, 0 without one) and three counts:
-    ``refit_steps``, the stretch-move steps of every ``batched_max_loglike``
-    run of the call (two a chunk), ``refit_graph_steps``, those of them
-    replayed as a CUDA graph, and ``e13_passes``, the passes of
-    ``e13_adjust_batch``'s loop over the call (each ends in a host sync; 0
-    for Gaussian simulations).  Each phase is a ``tracing`` span (under
+    fits run here, ``simulator_s``, the making of the simulator and its noise
+    model (with Kraft noise, its tables), ``generation_s``, ``refits_s``,
+    ``refine_s``, and ``checkpoint_s``: the checkpoint writes, 0 without one)
+    and five counts: ``refit_steps``, the stretch-move steps of every
+    ``batched_max_loglike`` run of the call (two a chunk),
+    ``refit_graph_steps``, those of them replayed as a CUDA graph,
+    ``e13_passes``, the passes of ``e13_adjust_batch``'s loop over the call
+    (each ends in a host sync; 0 for Gaussian simulations), and
+    ``kraft_bins`` / ``kraft_bins_replaced``, the simulated bins that went
+    through the Kraft step and those it replaced (0 without Kraft noise; the
+    second read from the card once, after the last chunk's results reached
+    the host).  Each phase is a ``tracing`` span (under
     ``lrt.protassov_lrt`` and ``lrt.chunk``), recorded while a
     ``torch.profiler`` session runs.  ``pdf``: the flux PDF of the simulations ("Gaussian",
     "Lognormal" or "Uniform"); a count of E13 adjustments that hit their
@@ -615,7 +620,7 @@ def protassov_lrt(
     refine_f64 = sim_dtype is not None and sim_dtype != torch.float64
     timings = {"map_fit_s": 0.0, "observed_sampling_s": 0.0, "generation_s": 0.0,
                "refits_s": 0.0, "refine_s": 0.0, "checkpoint_s": 0.0, "refit_steps": 0, "refit_graph_steps": 0,
-               "e13_passes": 0}
+               "e13_passes": 0, "simulator_s": 0.0, "kraft_bins": 0, "kraft_bins_replaced": 0}
 
     # 1. observed fits
     def observed(model, kernel, model_seed, name):
@@ -648,7 +653,10 @@ def protassov_lrt(
     nk_null = null_kernel.ndim
     null_starts = param_samples[:, :nk_null].cpu().numpy()
     obs_start = samples[idx_obs][:, :nk_null].cpu().numpy()
-    gen = null_model.make_device_generator(pdf, extension_factor=extension_factor, sigma_noise=sigma_noise)
+    with tracing.phase("lrt.simulator", timings, "simulator_s"):
+        gen = null_model.make_device_generator(pdf, extension_factor=extension_factor, sigma_noise=sigma_noise)
+    noise = gen.simulator.noise
+    kraft_before = (noise.bins_drawn, noise.bins_replaced)
     obs_y = torch.as_tensor(np.asarray(lightcurve.y, dtype=np.float64), device=device)[None, :]
     dy_obs = lightcurve.dy if lightcurve.dy is not None else np.zeros(lightcurve.n)
     obs_dy = torch.as_tensor(np.asarray(dy_obs, dtype=np.float64), device=device)[None, :]
@@ -732,6 +740,9 @@ def protassov_lrt(
                         barrier()
         _mark(f"bootstrap chunk {ci + 1}/{n_chunks} done")
     timings["e13_passes"] = e13_adjust_batch.passes - passes
+    # the chunks' results are on the host already: this read adds no sync to the loop
+    timings["kraft_bins"] = noise.bins_drawn - kraft_before[0]
+    timings["kraft_bins_replaced"] = int(noise.bins_replaced - kraft_before[1])
 
     null_lls = np.concatenate(null_parts)
     alt_lls = np.concatenate(alt_parts)

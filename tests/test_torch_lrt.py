@@ -175,7 +175,8 @@ def test_protassov_lrt_ab_against_jax():
     assert a.t_dist.shape == (8,) and np.all(np.isfinite(a.t_dist))
     assert 0.0 <= a.p_value <= 1.0
     assert set(a.timings) == {"map_fit_s", "observed_sampling_s", "generation_s", "refits_s", "refine_s",
-                              "checkpoint_s", "refit_steps", "refit_graph_steps", "e13_passes"}
+                              "checkpoint_s", "refit_steps", "refit_graph_steps", "e13_passes",
+                              "simulator_s", "kraft_bins", "kraft_bins_replaced"}
     assert a.timings["refit_graph_steps"] == 0  # the CPU steps eagerly
     assert a.t_obs == b.t_obs and a.p_value == b.p_value
     np.testing.assert_array_equal(a.t_dist, b.t_dist)

@@ -3,9 +3,11 @@ port, against the JAX package.
 
 - ``KraftNoise``'s Kraft step on the same drawn Poisson totals equals the
   JAX package's formulas (``simulator/noise.py:93-107``: the low mask,
-  round / trunc counts clipped at 0, the median and the HPD half-width)
-  within rtol 1e-9: the port gathers from per-bin tables of the same
-  functions at the same arguments;
+  counts clipped at 0, the median and the HPD half-width) within rtol
+  1e-9, both read at the drawn counts: the port gathers from per-bin
+  tables of the same functions, at round(total) where the JAX package
+  reads the interval at trunc(total), one short where the recovered total
+  falls a rounding error below its whole number;
 - the ports of ``test_simulator.py``'s Kraft cases, and the paths that
   raised before Kraft noise was ported: ``generate_batch_from_posteriors``
   and ``protassov_lrt(device="cpu")`` on a lightcurve with a background and
@@ -41,14 +43,16 @@ from mind_the_gaps_tpu_torch.simulator.regular import RegularLightcurve  # noqa:
 
 
 def _jax_kraft_step(totals, exposures, bkg, bkg_err, kraft_counts=15):
-    """JAX KraftNoise.add_noise_jax after its Poisson draw, on given totals."""
+    """JAX KraftNoise.add_noise_jax after its Poisson draw, on given totals,
+    with the threshold and the interval read at the drawn counts (round) as
+    the median is."""
     net = (totals - bkg) / exposures
     dy = jnp.sqrt((jnp.sqrt(totals) / exposures) ** 2 + bkg_err**2)
     total_counts = net * exposures + bkg
-    low = total_counts < kraft_counts
-    med = kraft_posterior_median(jnp.clip(jnp.round(total_counts), 0.0, None), jnp.broadcast_to(bkg, totals.shape))
-    lo, hi = kraft_hpd_interval(jnp.clip(jnp.trunc(total_counts), 0.0, None), jnp.broadcast_to(bkg, totals.shape),
-                                cl=0.68)
+    counts = jnp.clip(jnp.round(total_counts), 0.0, None)
+    low = counts < kraft_counts
+    med = kraft_posterior_median(counts, jnp.broadcast_to(bkg, totals.shape))
+    lo, hi = kraft_hpd_interval(counts, jnp.broadcast_to(bkg, totals.shape), cl=0.68)
     return np.asarray(jnp.where(low, med / exposures, net)), np.asarray(jnp.where(low, (hi - lo) / 2.0 / exposures, dy))
 
 
@@ -61,12 +65,16 @@ def test_kraft_step_matches_jax_formulas():
     bkg_err = rng.uniform(0.0, 0.1, n)
     rates = rng.uniform(0.0, 12.0, (6, n))
     totals = rng.poisson(rates * exposures + bkg).astype(float)
+    totals[-1] = 15.0  # a row at the threshold: some bins' totals are recovered a rounding error below it
     noise = KraftNoise(exposures, bkg, bkg_err, device="cpu")
     assert noise.median_table.shape == (16, n)
     net, dy = noise.add_noise_torch(torch.as_tensor(rates), counts=torch.as_tensor(totals))
     net_j, dy_j = _jax_kraft_step(jnp.asarray(totals), jnp.asarray(exposures), jnp.asarray(bkg), jnp.asarray(bkg_err))
     low = totals < 15
     assert 0.2 < low.mean() < 0.9  # both branches are exercised
+    recovered = (totals - bkg) / exposures * exposures + bkg
+    assert np.any(low & (np.trunc(recovered) < totals))  # a count that trunc would read one short
+    assert np.any((totals == 15) & (recovered < 15))  # a bin of 15 counts that the total would read as low
     np.testing.assert_allclose(net.numpy(), net_j, rtol=1e-9, atol=1e-12)
     np.testing.assert_allclose(dy.numpy(), dy_j, rtol=1e-9, atol=1e-12)
     assert noise.bins_drawn == totals.size and int(noise.bins_replaced) == int(low.sum())

@@ -11,7 +11,9 @@ with them.
 - ``timings`` keeps its keys and gains ``refit_steps`` (the refit runs'
   likelihood calls in ``batched_max_loglike.shard_launches``, less two a
   run, halved: a counter that counts on any device), ``refit_graph_steps``
-  (0 on the CPU, where no step is a graph replay) and ``e13_passes``.
+  (0 on the CPU, where no step is a graph replay), ``e13_passes``,
+  ``simulator_s`` (the ``lrt.simulator`` phase) and the Kraft counts
+  (0 without a background; ``test_torch_kraft_lrt.py`` has them with one).
 - A span shares the profiler's clock: around a ``record_function`` block
   it contains the profiler's event for the block (on the CPU), and on a
   card it contains the runtime's ``cudaLaunchKernel`` and
@@ -39,6 +41,7 @@ from mind_the_gaps_tpu_torch.kernels import DampedRandomWalk, Lorentzian  # noqa
 N = 24
 NSIMS, CHUNK = 6, 4  # two chunks, the observed row in the second
 PARENTS = {
+    "lrt.simulator": {"lrt.protassov_lrt"},
     "lrt.chunk": {"lrt.protassov_lrt"},
     "lrt.generation": {"lrt.chunk"},
     "lrt.refits": {"lrt.chunk"},
@@ -193,9 +196,11 @@ def test_recording_changes_no_result(runs):
 def test_lrt_timings_keep_their_keys_and_count_the_steps_and_passes(runs):
     off = runs["off"].timings
     assert set(off) == {"map_fit_s", "observed_sampling_s", "generation_s", "refits_s", "refine_s",
-                        "checkpoint_s", "refit_steps", "refit_graph_steps", "e13_passes"}
+                        "checkpoint_s", "refit_steps", "refit_graph_steps", "e13_passes",
+                        "simulator_s", "kraft_bins", "kraft_bins_replaced"}
     assert off["refit_graph_steps"] == 0  # the CPU steps eagerly
-    assert all(off[k] > 0 for k in ("generation_s", "refits_s", "refine_s"))
+    assert all(off[k] > 0 for k in ("simulator_s", "generation_s", "refits_s", "refine_s"))
+    assert off["kraft_bins"] == off["kraft_bins_replaced"] == 0  # Poisson noise: no background
     chunks = -(-(NSIMS + 1) // CHUNK)
     assert len(runs["off_runs"]) == 2 * chunks and all(len(r) == 1 for r in runs["off_runs"])
     assert off["refit_steps"] == sum(r[0] - 2 for r in runs["off_runs"]) // 2
