@@ -14,8 +14,9 @@ two entry points:
 and HPD half-width.  Both depend only on the bin's counts N and its
 background B, B is fixed for the model and a low bin's N is an integer
 below ``kraft_counts``, so the model tabulates them once, per bin, for
-N = 0..ceil(kraft_counts), on its device when it is built
-(``stats.kraft_posterior_median`` / ``kraft_hpd_interval``); a draw then
+N = 0..ceil(kraft_counts), on its device when it is built (on a card in
+one launch of ``ops.kraft``'s kernel, elsewhere by the plain bisections of
+``stats.kraft_posterior_median`` / ``kraft_hpd_interval``); a draw then
 gathers from the tables: the JAX package's functions, evaluated at the
 drawn counts (``KraftNoise`` says where the two read N differently).
 """
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from mind_the_gaps_tpu_torch import tracing
+from mind_the_gaps_tpu_torch.ops import kraft as kraft_op
 from mind_the_gaps_tpu_torch.stats import kraft_hpd_interval, kraft_posterior_median
 
 __all__ = ["BaseNoise", "PoissonNoise", "KraftNoise", "GaussianNoise", "kraft_tables"]
@@ -104,7 +106,8 @@ class KraftNoise(PoissonNoise):
     number (~11% of the bins at exposure 1.5 s), its interval is read one
     count short, and a bin of ``kraft_counts`` counts takes Kraft values.  The tables of both are built on ``device`` at
     construction (``kraft_tables``, under the span ``sim.kraft_tables``,
-    counting the tables' cells).  ``bins_drawn``
+    counting the tables' cells and the kernel's launches: one on a card,
+    none elsewhere).  ``bins_drawn``
     counts the bins ``kraft_step`` has seen and ``bins_replaced`` (a device
     scalar, read without a sync until the caller wants it) those it
     replaced."""
@@ -115,9 +118,12 @@ class KraftNoise(PoissonNoise):
         self.name = "Kraft"
         self.kraft_counts = kraft_counts
         self.max_count = max(int(math.ceil(kraft_counts)), 0)
-        with tracing.span("sim.kraft_tables", cells=(self.max_count + 1) * len(self.background_counts)):
+        launched = kraft_op.launches
+        with tracing.span("sim.kraft_tables", cells=(self.max_count + 1) * len(self.background_counts)) as counts:
             self.median_table, self.lo_table, self.hi_table = kraft_tables(
                 self.background_counts, self.max_count, self.device)
+            if counts is not None:
+                counts["launches"] = kraft_op.launches - launched
         self.bins_drawn = 0
         self.bins_replaced = torch.zeros((), dtype=torch.int64, device=self.device)
 
@@ -156,8 +162,11 @@ class KraftNoise(PoissonNoise):
 def kraft_tables(background_counts, max_count: int, device="cuda"):
     """(median, hpd lo, hpd hi) float64 tables of shape (max_count + 1, n)
     on ``device``: row N, column i holds the Kraft quantities at N counts
-    and bin i's background."""
+    and bin i's background.  On a card, one launch of ``ops.kraft``'s
+    kernel; elsewhere the plain bisections of ``stats``."""
     device = torch.device(device)
+    if device.type == "cuda":
+        return kraft_op.kraft_tables(background_counts, max_count, device)
     B = torch.as_tensor(np.asarray(background_counts, dtype=np.float64), device=device)[None, :]
     N = torch.arange(max_count + 1, dtype=torch.float64, device=device)[:, None]
     N, B = torch.broadcast_tensors(N, B)

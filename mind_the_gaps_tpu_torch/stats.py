@@ -19,7 +19,9 @@ PyTorch port of ``mind_the_gaps_tpu/stats.py``:
   passes CPU tensors or ``device="cpu"``), by
   fixed-iteration bisections over regularized incomplete gamma functions,
   with the JAX package's iteration counts (70 inner, 60 on the level) and
-  brackets.
+  brackets: on a card in one launch of ``ops.kraft``'s kernel, elsewhere as
+  eager PyTorch operations (``kraft_posterior_median_plain``,
+  ``kraft_hpd_interval_plain``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ import torch
 from scipy import special, stats
 from scipy.optimize import minimize
 from scipy.stats import lognorm, uniform
+
+from mind_the_gaps_tpu_torch.ops import kraft as _kraft_op
 
 __all__ = [
     "kraft_pdf",
@@ -50,6 +54,8 @@ __all__ = [
     "sample_pdf",
     "kraft_posterior_median",
     "kraft_hpd_interval",
+    "kraft_posterior_median_plain",
+    "kraft_hpd_interval_plain",
 ]
 
 
@@ -262,8 +268,17 @@ def kraft_posterior_median(N, B, upper: float = 200.0, device="cuda"):
     """Median of the Kraft posterior at counts ``N`` and background ``B``
     (float64 tensors or arrays that broadcast; on ``N``'s device if it is a
     tensor, else on ``device``): 70 bisection steps of the CDF on
-    [0, ``upper``]."""
+    [0, ``upper``].  On a card, one launch of ``ops.kraft``'s kernel (whole
+    counts); elsewhere ``kraft_posterior_median_plain``."""
     N, B = _counts_and_background(N, B, device)
+    if N.device.type == "cuda":
+        return _kraft_op.kraft_quantities(N, B, upper=upper, hpd=False)[0]
+    return kraft_posterior_median_plain(N, B, upper)
+
+
+def kraft_posterior_median_plain(N, B, upper: float = 200.0):
+    """``kraft_posterior_median``'s bisections as eager PyTorch operations
+    on float64 tensors ``N`` and ``B`` of one shape, on their device."""
     post = _KraftPosterior(N, B)
     return _bisect(lambda x: post.cdf(x) - 0.5, torch.zeros_like(N), torch.full_like(N, upper))
 
@@ -279,8 +294,18 @@ def kraft_hpd_interval(N, B, cl: float = 0.68, upper: float = 200.0, level_iters
     falls as lambda rises); at each level the ends a <= mode <= b solve
     pdf(x) = lambda by 70-step bisections, a = 0 where pdf(0) < lambda.  The
     two ends run as one bisection on a stacked tensor: b's function is
-    a's with its sign flipped, the same numbers as two bisections."""
+    a's with its sign flipped, the same numbers as two bisections.  On a
+    card, one launch of ``ops.kraft``'s kernel (whole counts); elsewhere
+    ``kraft_hpd_interval_plain``."""
     N, B = _counts_and_background(N, B, device)
+    if N.device.type == "cuda":
+        return tuple(_kraft_op.kraft_quantities(N, B, upper=upper, cl=cl, level_iters=level_iters, median=False))
+    return kraft_hpd_interval_plain(N, B, cl, upper, level_iters)
+
+
+def kraft_hpd_interval_plain(N, B, cl: float = 0.68, upper: float = 200.0, level_iters: int = 60):
+    """``kraft_hpd_interval``'s bisections as eager PyTorch operations on
+    float64 tensors ``N`` and ``B`` of one shape, on their device."""
     post = _KraftPosterior(N, B)
     zeros = torch.zeros_like(N)
     mode = torch.clamp(N - B, min=0.0)

@@ -126,7 +126,7 @@ class _Span:
                 self.parent, self.root = None, self.id
             stack.append(self)
         self.t0 = time.perf_counter_ns()
-        return None
+        return None if self.id is None else self.counts
 
     def __exit__(self, exc_type, exc, tb):
         t1 = time.perf_counter_ns()
@@ -141,7 +141,9 @@ class _Span:
 
 def span(name: str, **counts):
     """A context that records the span ``name`` with integer ``counts``
-    while a profiler session is active, and does nothing otherwise."""
+    while a profiler session is active, and does nothing otherwise.  It
+    gives its ``with`` block the counts dict while it records (a count
+    known only at the block's end is added there), else None."""
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _Span(name, counts)
