@@ -46,7 +46,6 @@ from mind_the_gaps_tpu_torch.sampler import (
     integrated_autocorr_time,
     integrated_autocorr_time_masked,
     sample_ensemble_grouped,
-    sample_ensemble_impl,
 )
 from mind_the_gaps_tpu_torch.solver.numpy_ref import numpy_log_likelihood
 from mind_the_gaps_tpu_torch.solver.semiseparable import (
@@ -553,6 +552,7 @@ class GPModelling:
 
             seg_dtype = torch.float32 if fast else torch.float64
             state = torch.as_tensor(initial_chain_params, dtype=seg_dtype, device=self.device)
+            state = state.reshape(-1, *state.shape[-2:])  # (chains, walkers, D); one ensemble when chains == 1
             chain_buf = state.new_zeros((max_steps, pooled, self._ndim))
             lp_buf = state.new_zeros((max_steps, pooled))
 
@@ -563,9 +563,8 @@ class GPModelling:
             tau = np.full(self._ndim, np.inf)
             while iteration < max_steps:
                 steps = min(convergence_steps, max_steps - iteration)
-                sampler_fn = sample_ensemble_grouped if state.dim() == 3 else sample_ensemble_impl
                 with tracing.span("sampler.segment", steps=steps):
-                    chain, lps, acc, state = sampler_fn(log_prob, state, steps, generator=self._generator)
+                    chain, lps, acc, state = sample_ensemble_grouped(log_prob, state, steps, generator=self._generator)
                     chain_buf[iteration : iteration + steps] = chain.reshape(steps, pooled, self._ndim)
                     lp_buf[iteration : iteration + steps] = lps.reshape(steps, pooled)
                 iteration += steps

@@ -49,7 +49,8 @@ from mind_the_gaps_tpu_torch.parallel import (
     process_allgather,
     process_any,
 )
-from mind_the_gaps_tpu_torch.sampler.ensemble import stretch_draws, stretch_half
+from mind_the_gaps_tpu_torch.sampler.ensemble import (best_walkers, half_log_probs, stretch_draws, stretch_step,
+                                                       update_best)
 from mind_the_gaps_tpu_torch.sampler.graph import StepGraph
 from mind_the_gaps_tpu_torch.simulator.core import e13_adjust_batch
 from mind_the_gaps_tpu_torch.solver.batched import batched_log_prob_fn
@@ -179,48 +180,26 @@ class LRTResult:
 
 class _ShardRun:
     """The rows ``span`` of a ``batched_max_loglike`` run on one device: their
-    log-probability, the chains' state and the best so far."""
+    log-probability, the chains' state and the best so far, advanced by the
+    sampler's step (``sampler.ensemble.stretch_step``)."""
 
-    def __init__(self, log_prob, state, half, span):
-        self.log_prob, self.half, self.span = log_prob, half, span
-        self.G, _, self.nk = state.shape
-        self.device = state.device
-        self.rows = torch.arange(self.G, device=self.device)
+    def __init__(self, log_prob, state, span):
+        self.log_prob, self.state, self.span, self.device = log_prob, state, span, state.device
         self.launches = 0
-        self.state = state
-        self.logp = torch.cat([self.lp_eval(state[:, :half]), self.lp_eval(state[:, half:])], dim=1)
-        i0 = torch.argmax(self.logp, dim=1)
-        self.best_lp, self.best_x = self.logp[self.rows, i0], state[self.rows, i0]
+        self.logp = half_log_probs(self.lp_eval, state)
+        self.best_lp, self.best_x = best_walkers(state, self.logp)
 
-    def lp_eval(self, th):  # (G, half, D) -> (G, half)
+    def lp_eval(self, th):  # (B, D) -> (B,), one likelihood launch
         self.launches += 1
-        return self.log_prob(th.reshape(self.G * self.half, self.nk)).reshape(self.G, self.half)
+        return self.log_prob(th)
 
     def step(self, draws, a, tol):
-        """One stretch-move step of both halves from ``draws`` (those of
-        ``stretch_draws(1, (G, half), ...)`` for these rows), written into
-        the run's state, log-probabilities and best, which stay the same
-        tensors (so a CUDA graph can capture the step); returns whether some
-        row improved its best by more than ``tol`` (a 0-d tensor), or None
-        without a ``tol``."""
+        """One step from ``draws`` (``stretch_draws(1, (G, half), ...)``'s, for
+        these rows), written into the run's state, log-probabilities and best
+        in place; ``update_best``'s improvement flag."""
         u_z, picks, u_acc = draws
-        half = self.half
-        first, second = self.state[:, :half], self.state[:, half:]
-        first, lp1, _ = stretch_half(first, second, self.logp[:, :half], self.lp_eval, u_z[0, 0], picks[0, 0],
-                                     u_acc[0, 0], a)
-        second, lp2, _ = stretch_half(second, first, self.logp[:, half:], self.lp_eval, u_z[0, 1], picks[0, 1],
-                                      u_acc[0, 1], a)
-        state = torch.cat([first, second], dim=1)
-        logp = torch.cat([lp1, lp2], dim=1)
-        i = torch.argmax(logp, dim=1)
-        cand_lp, cand_x = logp[self.rows, i], state[self.rows, i]
-        improved = None if tol is None else torch.any(cand_lp > self.best_lp + tol)
-        better = cand_lp > self.best_lp
-        best_lp = torch.where(better, cand_lp, self.best_lp)
-        best_x = torch.where(better[:, None], cand_x, self.best_x)
-        for old, new in zip((self.state, self.logp, self.best_lp, self.best_x), (state, logp, best_lp, best_x)):
-            old.copy_(new)
-        return improved
+        stretch_step(self.state, self.logp, self.lp_eval, u_z[0], picks[0], u_acc[0], a)
+        return update_best(self.state, self.logp, self.best_lp, self.best_x, tol)
 
 
 def _graph_engages(runs, lead) -> bool:
@@ -232,10 +211,9 @@ def _graph_engages(runs, lead) -> bool:
 
 class _GraphedStep:
     """The steps of ``run`` (alone on its card) after its first, each one
-    replay of one captured step (``sampler.graph.StepGraph``): the draws
-    from ``generator``, both half-steps with their likelihood launches, the
-    running best and the early stop's flag, written into the run's tensors.
-    Each replay moves the launch counters as the eager step does."""
+    replay of one captured ``run.step`` with its draws from ``generator``
+    (``sampler.graph.StepGraph``).  Each replay moves the launch counters
+    as the eager step does."""
 
     def __init__(self, run, shape, dtype, generator, a, tol):
         op = celerite_log_likelihood
@@ -269,7 +247,8 @@ def batched_max_loglike(
     mesh: Optional[Mesh] = None, spmd: str = "gspmd",
 ):
     """Best log-posterior of ``kernel`` for each of G lightcurves by short
-    stretch-move chains, all G x ``walkers`` chains in lock-step.
+    stretch-move chains, G ensembles of ``walkers`` in lock-step, each step
+    the sampler's (``sampler.ensemble.stretch_step``, then ``update_best``).
 
     ``ys``/``diags``: (G, N) on the device; ``theta0``: (D,) shared or (G,
     D) per-row starts.  Each half-ensemble update is one batched likelihood
@@ -283,13 +262,11 @@ def batched_max_loglike(
 
     A run that is alone on its card (no mesh, a mesh of one device, this
     process's one position of a process mesh, a "shard_map" shard) takes its
-    first step eagerly, captures the next as a CUDA graph (``sampler.graph``)
-    and replays it for every step after: the draws from ``generator``, both
-    half-steps with their kernel launches, the running best and the early
-    stop's flag, one launch of the graph a step, the host reading the flag
-    as before.  The replays give the eager steps' results bit for bit.  On
-    the CPU and over several "gspmd" shards in one process every step runs
-    eagerly.
+    first step eagerly, captures the next, its draws included, as a CUDA
+    graph (``sampler.graph``) and replays it for every step after, the host
+    reading the flag as before; the replays give the eager steps' results
+    bit for bit.  On the CPU and over several "gspmd" shards in one process
+    every step runs eagerly.
 
     ``mesh`` (``parallel.Mesh``): the G rows are cut into ``mesh.size``
     contiguous blocks (``torch.tensor_split``, so they may be uneven), block
@@ -356,7 +333,7 @@ def batched_max_loglike(
                 r = slice(int(blocks[k][0]), int(blocks[k][-1]) + 1)
                 log_prob = batched_log_prob_fn(kernel, t.to(dev), ys[r].to(dev), diags[r].to(dev), repeats=half,
                                                dtype=dtype, team=team, data_means=data_means[r].to(dev))
-                runs.append((i, _ShardRun(log_prob, state[r].to(dev), half, r)))
+                runs.append((i, _ShardRun(log_prob, state[r].to(dev), r)))
 
         tol = None if early_stop is None else early_stop[0]
         graphed = _graph_engages(runs, lead)
@@ -370,9 +347,9 @@ def batched_max_loglike(
                     improved = [replay()]
                     replayed += 1
                 else:
-                    u_z, picks, u_acc = stretch_draws(1, (G, half), dtype, lead, generator)
-                    improved = [run.step(tuple(d[:, :, run.span].to(run.device) for d in (u_z, picks, u_acc)), a,
-                                         tol) for _, run in runs]
+                    draws = stretch_draws(1, (G, half), dtype, lead, generator)
+                    improved = [run.step(tuple(d[:, :, run.span].to(run.device) for d in draws), a, tol)
+                                for _, run in runs]
                 if tol is not None:
                     with tracing.span("refits.early_stop"):
                         moved = any(bool(x) for x in improved)  # the host waits here, after every shard's step

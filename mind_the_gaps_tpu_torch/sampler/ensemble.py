@@ -7,11 +7,14 @@ algorithm): complementary-half updates with the stretch proposal
     Y = X_j + z (X_k - X_j),  accept with prob min(1, z^(d-1) e^(dlogp))
 
 so that each step evaluates the log-probability of half the ensemble as
-one batch.  ``sample_ensemble_grouped`` runs C independent ensembles in
-lock-step, each half-update one (C W/2, D) batch; ``max_loglike_ensemble_impl``
-keeps only the running best.  The random numbers enter as tensors
-(``stretch_draws``), so a test can feed both implementations the same
-draws; by default they come from a ``torch.Generator``.
+one batch.  ``stretch_step`` is the one step: C ensembles in lock-step,
+each half-update one (C W/2, D) batch, written in place so that a CUDA
+graph can capture it (``sampler.graph``).  ``sample_ensemble_grouped``
+(the observed sampler) records its chain; ``max_loglike_ensemble_impl``
+and the bootstrap refits (``lrt``) keep the running best (``update_best``).
+The random numbers enter as tensors (``stretch_draws``), so a test can
+feed both implementations the same draws; by default they come from a
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -24,6 +27,10 @@ from mind_the_gaps_tpu_torch import tracing
 __all__ = [
     "stretch_draws",
     "stretch_half",
+    "stretch_step",
+    "half_log_probs",
+    "update_best",
+    "best_walkers",
     "sample_ensemble",
     "sample_ensemble_impl",
     "sample_ensemble_grouped",
@@ -61,11 +68,51 @@ def stretch_half(active, passive, logp_active, log_prob_fn: Callable, u_z, picks
 
 
 def _halves(state):
-    w = state.shape[-2]
-    half = w // 2
-    if 2 * half != w:
+    if state.shape[-2] % 2:
         raise ValueError("number of walkers must be even")
-    return half
+    return state.shape[-2] // 2
+
+
+def _batched(log_prob_fn):  # (B, D) -> (B,) as (C, H, D) -> (C, H), one (C H, D) batch
+    return lambda x: log_prob_fn(x.reshape(-1, x.shape[-1])).reshape(x.shape[:-1])
+
+
+def half_log_probs(log_prob_fn: Callable, state):
+    """The log-probabilities (C, W) of ``state`` (C, W, D), a batch a half."""
+    half, lp = _halves(state), _batched(log_prob_fn)
+    return torch.cat([lp(state[:, :half]), lp(state[:, half:])], dim=1)
+
+
+def stretch_step(state, logp, log_prob_fn: Callable, u_z, picks, u_acc, a: float = 2.0):
+    """One step of both halves of C ensembles, written into ``state`` (C, W,
+    D) and ``logp`` (C, W) with no sync or host copy (a CUDA graph captures
+    it), from one step's ``stretch_draws`` (2, C, W/2), the second half
+    moving against the first's new walkers; ``log_prob_fn`` is (B, D) ->
+    (B,).  Returns the halves' accept masks."""
+    half, lp = _halves(state), _batched(log_prob_fn)
+    accepts = [None, None]
+    for k, (act, pas) in enumerate(((slice(0, half), slice(half, None)), (slice(half, None), slice(0, half)))):
+        state[:, act], logp[:, act], accepts[k] = stretch_half(state[:, act], state[:, pas], logp[:, act], lp,
+                                                               u_z[k], picks[k], u_acc[k], a)
+    return accepts
+
+
+def best_walkers(state, logp):
+    """Each ensemble's best walker (the first of ties): (C,) and (C, D)."""
+    i = torch.argmax(logp, dim=1, keepdim=True)
+    return torch.take_along_dim(logp, i, dim=1)[:, 0], torch.take_along_dim(state, i[..., None], dim=1)[:, 0]
+
+
+def update_best(state, logp, best_lp, best_x, tol=None):
+    """Write each ensemble's best walker into ``best_lp`` (C,) / ``best_x``
+    (C, D) where it beats them; whether one beat them by more than ``tol``
+    (a 0-d tensor), None without a ``tol``."""
+    cand_lp, cand_x = best_walkers(state, logp)
+    improved = None if tol is None else torch.any(cand_lp > best_lp + tol)
+    better = cand_lp > best_lp
+    best_lp.copy_(torch.where(better, cand_lp, best_lp))
+    best_x.copy_(torch.where(better[:, None], cand_x, best_x))
+    return improved
 
 
 def sample_ensemble_impl(
@@ -86,20 +133,13 @@ def sample_ensemble_impl(
     Returns chain (n_steps, W, D), log_probs (n_steps, W), the acceptance
     fraction (a 0-d tensor) and the final state (W, D).
     """
-    state = torch.as_tensor(initial_state)
-    if draws is not None:
-        draws = tuple(d[:, :, None] for d in draws)
-    chain, log_probs, acc, final = sample_ensemble_grouped(log_prob_fn, state[None], n_steps, generator, a, draws)
+    draws = None if draws is None else tuple(d[:, :, None] for d in draws)
+    chain, log_probs, acc, final = sample_ensemble_grouped(log_prob_fn, torch.as_tensor(initial_state)[None], n_steps,
+                                                           generator, a, draws)
     return chain[:, 0], log_probs[:, 0], acc, final[0]
 
 
-sample_ensemble = sample_ensemble_impl
-
-
-def run_ensemble(log_prob_fn: Callable, initial_state, n_steps: int,
-                 generator: Optional[torch.Generator] = None, a: float = 2.0, draws=None):
-    """Alias of ``sample_ensemble`` (API stability)."""
-    return sample_ensemble(log_prob_fn, initial_state, n_steps, generator, a, draws)
+sample_ensemble = run_ensemble = sample_ensemble_impl  # the JAX package's names (API stability)
 
 
 def sample_ensemble_grouped(
@@ -112,38 +152,28 @@ def sample_ensemble_grouped(
 ):
     """``C`` independent stretch-move ensembles advancing in lock-step.
 
-    ``initial_state`` (C, W, D).  Each ensemble proposes only within its own
-    complementary halves (the statistics of C separate
-    ``sample_ensemble_impl`` runs), and every half-update evaluates one
-    (C W/2, D) batch of ``log_prob_fn`` ((B, D) -> (B,) for any B).
+    ``initial_state`` (C, W, D), left as it is.  Each ensemble proposes only
+    within its own complementary halves (the statistics of C separate
+    ``sample_ensemble_impl`` runs), each step one ``stretch_step``.
     ``draws``: optional ``stretch_draws(n_steps, (C, W // 2), ...)``; chain
     ``c`` given ``draws[k][:, :, c]`` equals a ``sample_ensemble_impl`` run.
 
     Returns chain (n_steps, C, W, D), log_probs (n_steps, C, W), the
     acceptance fraction (0-d) and the final state (C, W, D).
     """
-    state = torch.as_tensor(initial_state)
+    state = torch.as_tensor(initial_state).clone()
     c, w, d = state.shape
-    half = _halves(state)
     if draws is None:
-        draws = stretch_draws(n_steps, (c, half), state.dtype, state.device, generator)
+        draws = stretch_draws(n_steps, (c, _halves(state)), state.dtype, state.device, generator)
     u_z, picks, u_acc = draws
 
-    def lp(x):  # (C, half, D) -> (C, half)
-        return log_prob_fn(x.reshape(c * half, d)).reshape(c, half)
-
-    logp = torch.cat([lp(state[:, :half]), lp(state[:, half:])], dim=1)
+    logp = half_log_probs(log_prob_fn, state)
     chain = state.new_empty((n_steps, c, w, d))
     log_probs = state.new_empty((n_steps, c, w))
     n_acc = torch.zeros((), dtype=torch.int64, device=state.device)
     for i in range(n_steps):
-        first, second = state[:, :half], state[:, half:]
-        first, lp1, acc1 = stretch_half(first, second, logp[:, :half], lp, u_z[i, 0], picks[i, 0], u_acc[i, 0], a)
-        second, lp2, acc2 = stretch_half(second, first, logp[:, half:], lp, u_z[i, 1], picks[i, 1], u_acc[i, 1], a)
-        state = torch.cat([first, second], dim=1)
-        logp = torch.cat([lp1, lp2], dim=1)
-        chain[i] = state
-        log_probs[i] = logp
+        acc1, acc2 = stretch_step(state, logp, log_prob_fn, u_z[i], picks[i], u_acc[i], a)
+        chain[i], log_probs[i] = state, logp
         n_acc += acc1.sum() + acc2.sum()
     return chain, log_probs, n_acc / (n_steps * c * w), state
 
@@ -161,23 +191,14 @@ def max_loglike_ensemble_impl(
     with the draws of ``sample_ensemble_impl``.
 
     Returns (best_lp (0-d), best_x (D,), final state (W, D), final log-probs (W,))."""
-    state = torch.as_tensor(initial_state)
-    half = _halves(state)
+    state = torch.as_tensor(initial_state).clone()[None]
     if draws is None:
-        draws = stretch_draws(n_steps, (half,), state.dtype, state.device, generator)
-    u_z, picks, u_acc = draws
+        draws = stretch_draws(n_steps, (_halves(state),), state.dtype, state.device, generator)
+    u_z, picks, u_acc = (d[:, :, None] for d in draws)
 
-    logp = log_prob_fn(state)
-    i0 = torch.argmax(logp)
-    best_lp, best_x = logp[i0], state[i0]
+    logp = log_prob_fn(state[0])[None]
+    best_lp, best_x = best_walkers(state, logp)
     for i in range(n_steps):
-        first, second = state[:half], state[half:]
-        first, lp1, _ = stretch_half(first, second, logp[:half], log_prob_fn, u_z[i, 0], picks[i, 0], u_acc[i, 0], a)
-        second, lp2, _ = stretch_half(second, first, logp[half:], log_prob_fn, u_z[i, 1], picks[i, 1], u_acc[i, 1], a)
-        state = torch.cat([first, second])
-        logp = torch.cat([lp1, lp2])
-        j = torch.argmax(logp)
-        better = logp[j] > best_lp
-        best_lp = torch.where(better, logp[j], best_lp)
-        best_x = torch.where(better, state[j], best_x)
-    return best_lp, best_x, state, logp
+        stretch_step(state, logp, log_prob_fn, u_z[i], picks[i], u_acc[i], a)
+        update_best(state, logp, best_lp, best_x)
+    return best_lp[0], best_x[0], state[0], logp[0]

@@ -8,7 +8,10 @@ sampler and the chain diagnostics, against the JAX package on the CPU.
   float64 ``_logprob_batch`` at random parameters: rtol 1e-10;
 - ``sample_ensemble_grouped`` given the same draws equals C separate
   ``sample_ensemble_impl`` runs bit for bit, and ``max_loglike_ensemble_impl``
-  the running maximum of a ``sample_ensemble_impl`` chain;
+  the running maximum of a ``sample_ensemble_impl`` chain; the bootstrap
+  refits' run (``lrt._ShardRun``) fed the draws of a grouped run walks its
+  chain and ends at each row's running maximum, bit for bit; neither
+  sampler writes into its initial state;
 - ``derive_posteriors(chains=4)``: the contracts of
   test_gpmodelling.py::test_derive_posteriors_multi_chain at a smaller size
   (50 points, 200 steps);
@@ -119,6 +122,44 @@ def test_max_loglike_ensemble_is_the_running_maximum():
     torch.testing.assert_close(best_x, all_x.reshape(-1, D)[flat], rtol=0, atol=0)
     torch.testing.assert_close(state, final, rtol=0, atol=0)
     torch.testing.assert_close(logp, lps[-1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tol", [None, 0.05])
+def test_refit_run_steps_the_grouped_chain_and_keeps_its_running_maximum(tol):
+    from mind_the_gaps_tpu_torch.lrt import _ShardRun
+
+    G, W, D, steps = 3, 6, 2, 25
+    init = torch.as_tensor(np.random.default_rng(4).normal(size=(G, W, D)))
+    draws = stretch_draws(steps, (G, W // 2), torch.float64, "cpu", torch.Generator().manual_seed(6))
+    chain, lps, _, final = sample_ensemble_grouped(_logp, init, steps, draws=draws)
+    all_lp = torch.cat([_logp(init)[None], lps])  # (steps + 1, G, W)
+    all_x = torch.cat([init[None], chain])
+    run = _ShardRun(_logp, init.clone(), slice(0, G))
+    for i in range(steps):
+        improved = run.step(tuple(d[i : i + 1] for d in draws), 2.0, tol)
+        if tol is None:
+            assert improved is None
+        else:  # some row's best of this step above its best so far by more than tol
+            best = all_lp[: i + 1].amax(dim=(0, 2))
+            assert bool(improved) == bool(torch.any(all_lp[i + 1].amax(1) > best + tol))
+    assert run.launches == 2 * (steps + 1)
+    torch.testing.assert_close(run.state, final, rtol=0, atol=0)
+    torch.testing.assert_close(run.logp, lps[-1], rtol=0, atol=0)
+    flat = torch.argmax(all_lp.transpose(0, 1).reshape(G, -1), dim=1)  # each row's first maximum, step by step
+    rows = torch.arange(G)
+    torch.testing.assert_close(run.best_lp, all_lp.transpose(0, 1).reshape(G, -1)[rows, flat], rtol=0, atol=0)
+    torch.testing.assert_close(run.best_x, all_x.transpose(0, 1).reshape(G, -1, D)[rows, flat], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("as_numpy", [False, True], ids=["tensor", "numpy"])
+def test_samplers_leave_their_initial_state(as_numpy):
+    init = np.random.default_rng(5).normal(size=(2, 6, 3))
+    kept = init.copy()
+    given = init if as_numpy else torch.as_tensor(init)  # as_tensor shares the array's memory
+    final = sample_ensemble_grouped(_logp, given, 10, generator=torch.Generator().manual_seed(7))[3]
+    assert not np.array_equal(final.numpy(), kept)  # the walkers moved
+    max_loglike_ensemble_impl(_logp, given[0], 10, generator=torch.Generator().manual_seed(8))
+    np.testing.assert_array_equal(np.asarray(given), kept)
 
 
 def test_derive_posteriors_multi_chain():
