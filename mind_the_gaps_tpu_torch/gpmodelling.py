@@ -10,7 +10,8 @@ PyTorch port of ``mind_the_gaps_tpu/gpmodelling.py``:
   reference's convergence, discard and thin policy, one ensemble or
   ``chains`` independent ones in lock-step; every step evaluates half the
   ensemble through ``ops.celerite_log_likelihood`` (the CUDA kernel for a
-  CUDA ``device``), with a fitted mean model as per-walker residuals;
+  CUDA ``device``), with a fitted mean model as per-walker residuals; on
+  a card each step after the first is one replay of a CUDA graph;
 - ``standarized_residuals``, ``loo_residuals``, ``predict``, ``get_rstat``;
 - ``make_device_generator``: posterior-predictive lightcurves (TK95, and
   the E13 adjustment for a non-Gaussian flux PDF) for a batch of parameter
@@ -39,14 +40,12 @@ from mind_the_gaps_tpu_torch.models.mean_models import (
     MeanModel,
 )
 from mind_the_gaps_tpu_torch.ops import celerite_log_likelihood
-from mind_the_gaps_tpu_torch.ops.celerite import batch_team
+from mind_the_gaps_tpu_torch.ops.celerite import _log_likelihood_prepared, _prepare, batch_team
 from mind_the_gaps_tpu_torch.ops.celerite_grad import celerite_log_likelihood_and_grad, celerite_loglike_fn
 from mind_the_gaps_tpu_torch.parallel import gather, shard_batch
-from mind_the_gaps_tpu_torch.sampler import (
-    integrated_autocorr_time,
-    integrated_autocorr_time_masked,
-    sample_ensemble_grouped,
-)
+from mind_the_gaps_tpu_torch.sampler import integrated_autocorr_time, integrated_autocorr_time_masked
+from mind_the_gaps_tpu_torch.sampler.ensemble import EnsembleChain
+from mind_the_gaps_tpu_torch.sampler.graph import StepGraph
 from mind_the_gaps_tpu_torch.solver.numpy_ref import numpy_log_likelihood
 from mind_the_gaps_tpu_torch.solver.semiseparable import (
     build_matrices,
@@ -91,12 +90,14 @@ def synchronize(device: torch.device) -> None:
 
 class ChainResult:
     """The pieces of emcee's EnsembleSampler the reference relies on:
-    get_chain / get_log_prob with discard/thin/flat, get_autocorr_time, and
-    iteration."""
+    get_chain / get_log_prob with discard/thin/flat, get_autocorr_time,
+    iteration and acceptance_fraction (each walker's share of accepted
+    proposals; None for a chain loaded from a file)."""
 
-    def __init__(self, chain: np.ndarray, log_probs: np.ndarray):
+    def __init__(self, chain: np.ndarray, log_probs: np.ndarray, acceptance_fraction: Optional[np.ndarray] = None):
         self._chain = chain  # (n_steps, walkers, ndim)
         self._log_probs = log_probs  # (n_steps, walkers)
+        self.acceptance_fraction = acceptance_fraction  # (walkers,)
 
     @property
     def iteration(self) -> int:
@@ -128,6 +129,38 @@ class ChainResult:
         return tau
 
 
+def _graph_engages(device, mesh) -> bool:
+    """Whether ``derive_posteriors`` replays its sampler steps as a CUDA
+    graph: on a card, without a mesh.  The CPU and a mesh (whose
+    log-probabilities gather across cards) step eagerly."""
+    return device.type == "cuda" and mesh is None
+
+
+def _captured(run: EnsembleChain, shard_calls: list):
+    """``run.step`` captured as a CUDA graph (``sampler.graph.StepGraph``): a
+    function that replays it and moves the celerite op's launch counters
+    and ``shard_calls`` as the eager step does."""
+    op = celerite_log_likelihood
+    before = op.launches, dict(op.team_launches), list(shard_calls)
+    graph = StepGraph(run.step, run.state.device)
+    # the capture ran the step's Python, not its work: give its counts back, add them at each replay
+    launches = op.launches - before[0]
+    teams = {k: n - before[1][k] for k, n in op.team_launches.items()}
+    calls = [n - m for n, m in zip(shard_calls, before[2])]
+    op.launches = before[0]
+    op.team_launches.update(before[1])
+    shard_calls[:] = before[2]
+
+    def replay():
+        graph.replay()
+        op.launches += launches
+        for k, n in teams.items():
+            op.team_launches[k] += n
+        for k, n in enumerate(calls):
+            shard_calls[k] += n
+    return replay
+
+
 class GPModelling:
     """Gaussian Process modelling of a GappyLightcurve on ``device``.
 
@@ -150,7 +183,7 @@ class GPModelling:
         self._y_cpu = torch.as_tensor(np.asarray(lightcurve.y, dtype=np.float64))
         self._diag_cpu = torch.as_tensor(diag)
         self._t = self._t_cpu.to(self.device)
-        self._data = {}  # (dtype, device) -> (t, y, diag) on that device
+        self._data = {}  # (dtype, device) -> the data prepared for the celerite op on that device
 
         self._nk = kernel.ndim
         self._nm = self.mean_model.ndim if self.fit_mean else 0
@@ -406,17 +439,15 @@ class GPModelling:
     # ------------------------------------------------------------------ #
     def _series(self, dtype):
         """(y, diag) on the model's device in ``dtype``, cast once."""
-        return self._data_on(dtype, self.device)[1:]
+        return self._prepared(dtype, self.device)[1:3]
 
-    def _data_on(self, dtype, device):
-        """(t in float64, y, diag in ``dtype``) on ``device``, copied once."""
+    def _prepared(self, dtype, device):
+        """The data on ``device`` in ``dtype`` as the celerite op takes it
+        (``ops.celerite._prepare``: ``t``, ``y``, ``diag``, the gaps and the
+        batch-last copies), made once."""
         key = (dtype, torch.device(device))
         if key not in self._data:
-            self._data[key] = (
-                self._t_cpu.to(device=device),
-                self._y_cpu.to(device=device, dtype=dtype),
-                self._diag_cpu.to(device=device, dtype=dtype),
-            )
+            self._data[key] = _prepare(self._t_cpu, self._y_cpu, self._diag_cpu, dtype, device)
         return self._data[key]
 
     def log_prob_batch(self, thetas, team=None):
@@ -425,20 +456,23 @@ class GPModelling:
         bounds plus the likelihood through the celerite op (``team``: its
         layout).  An unfitted constant mean enters as the op's per-element
         ``mean``; a fitted mean model as per-walker residual series (B, N),
-        formed in float64 and then cast."""
+        formed in float64 and then cast.  The data is the model's, prepared
+        once (``_prepared``): a call copies no part of the series but the
+        residuals, and so can be captured in a CUDA graph."""
         th_k = thetas[:, : self._nk]
         coeffs = self.kernel.coefficients(th_k)
         lp = self.kernel.log_prior(th_k)
         jitter = self.kernel.jitter(th_k)
-        t, y, diag = self._data_on(thetas.dtype, thetas.device)
+        data = self._prepared(thetas.dtype, thetas.device)
         if self.fit_mean:
             th_m = thetas[:, self._nk :]
             lp = lp + self.mean_model.log_prior(th_m)
-            resid = self._data_on(torch.float64, thetas.device)[1] - self.mean_model.value(t, th_m)
-            ll = celerite_log_likelihood(coeffs, t, resid.to(thetas.dtype), diag, extra_diag=jitter, team=team)
+            resid = self._prepared(torch.float64, thetas.device).y - self.mean_model.value(data.t, th_m)
+            resid = resid.to(thetas.dtype)
+            data, mean = data._replace(y=resid, y_t=resid.T.contiguous()), None
         else:
             mean = thetas.new_full((thetas.shape[0],), float(self.mean_model.get_parameter_vector()[0]))
-            ll = celerite_log_likelihood(coeffs, t, y, diag, mean=mean, extra_diag=jitter, team=team)
+        ll = _log_likelihood_prepared(coeffs, data, mean=mean, extra_diag=jitter, team=team)
         return torch.where(torch.isfinite(lp), lp + ll, ll.new_full((), -math.inf))
 
     def _sampler_log_prob(self, mesh, team, counts):
@@ -487,14 +521,30 @@ class GPModelling:
         celerite kernel's launches of the sampling (``"sampling_launches"``),
         the shards of the sampler's evaluations (``"mesh_shards"``, 1 without
         a mesh) and each shard's celerite calls (``"shard_launches"``, a list:
-        a kernel launch each on a card).  While a ``torch.profiler`` session
+        a kernel launch each on a card), and the steps replayed as a CUDA
+        graph (``"sampling_graph_steps"``).  While a ``torch.profiler`` session
         runs, the call records ``tracing`` spans: ``gp.derive_posteriors``,
         its two phases ``gp.map_fit`` and ``gp.sampling`` (the timers of
         ``map_fit_s`` and ``sampling_s``), and under the sampling one
-        ``sampler.segment`` a ``convergence_steps`` segment (its half-steps
+        ``sampler.segment`` a ``convergence_steps`` segment (counting its
+        ``steps`` and its ``graph_steps``; its half-steps
         ``sampler.half_step``, each with its ``sampler.log_prob``), one
         ``sampler.autocorr`` a convergence check (the host waits there) and
-        ``gp.chain_copy``, the chain's copy to the host.
+        ``gp.chain_copy``, the chain's copy to the host.  On a card the
+        half-step spans are those of the eager first step and of the capture
+        only: a replay runs no Python.
+
+        The steps: one ``sampler.ensemble.EnsembleChain`` a call, each
+        segment a run of ``sample_ensemble_grouped`` (its steps' draws made
+        up front, its walkers' log-probabilities evaluated anew).  On a card
+        without a mesh the first step of the call runs eagerly, the next is
+        captured as one CUDA graph (``sampler.graph``: both halves'
+        ``stretch_step``, the chain's row, the accept counts) and every step
+        after is a replay of it, the host waiting only at the convergence
+        checks; the replays give the eager steps' chain bit for bit.  On the
+        CPU and over a mesh every step runs eagerly.
+        ``sampler.acceptance_fraction`` holds each walker's share of accepted
+        proposals.
 
         ``fast``: explore in float32 and recompute the reported
         log-probabilities of the kept samples in float64, both through the
@@ -502,7 +552,7 @@ class GPModelling:
         the walker ball (numpy) and the sampler's ``torch.Generator``.
 
         ``chains``: the number of independent stretch-move ensembles of
-        ``walkers`` walkers each, run in lock-step (``sample_ensemble_grouped``:
+        ``walkers`` walkers each, run in lock-step (as ``sample_ensemble_grouped``:
         one likelihood launch a half-step for all of them); the chain is
         pooled as ``chains * walkers`` walkers.  ``initial_chain_params``
         may be (chains, walkers, ndim).
@@ -553,8 +603,9 @@ class GPModelling:
             seg_dtype = torch.float32 if fast else torch.float64
             state = torch.as_tensor(initial_chain_params, dtype=seg_dtype, device=self.device)
             state = state.reshape(-1, *state.shape[-2:])  # (chains, walkers, D); one ensemble when chains == 1
-            chain_buf = state.new_zeros((max_steps, pooled, self._ndim))
-            lp_buf = state.new_zeros((max_steps, pooled))
+            run = EnsembleChain(log_prob, state, max_steps)
+            graphed = _graph_engages(state.device, mesh)
+            replay, replayed = None, 0
 
             self.converged = False
             self._autocorr = []
@@ -563,16 +614,21 @@ class GPModelling:
             tau = np.full(self._ndim, np.inf)
             while iteration < max_steps:
                 steps = min(convergence_steps, max_steps - iteration)
-                with tracing.span("sampler.segment", steps=steps):
-                    chain, lps, acc, state = sample_ensemble_grouped(log_prob, state, steps, generator=self._generator)
-                    chain_buf[iteration : iteration + steps] = chain.reshape(steps, pooled, self._ndim)
-                    lp_buf[iteration : iteration + steps] = lps.reshape(steps, pooled)
+                graph_steps = steps - (iteration == 0) if graphed else 0
+                with tracing.span("sampler.segment", steps=steps, graph_steps=graph_steps):
+                    run.segment(iteration, steps, self._generator)
+                    for i in range(iteration, iteration + steps):
+                        if graphed and i > 0 and replay is None:  # step 0 ran eagerly: the capture's warm-up
+                            replay = _captured(run, shard_calls)
+                        (run.step if replay is None else replay)()
                 iteration += steps
+                replayed += graph_steps
                 with tracing.span("sampler.autocorr"):
-                    tau = integrated_autocorr_time_masked(chain_buf, iteration).cpu().numpy()
+                    tau = integrated_autocorr_time_masked(run.chain, iteration).cpu().numpy()
                 self._autocorr.append(np.mean(tau))
                 if progress:
-                    print(f"step {iteration}/{max_steps} (accept {float(acc):.2f})", flush=True)
+                    accept = float(run.accepted.sum()) / (iteration * pooled)
+                    print(f"step {iteration}/{max_steps} (accept {accept:.2f})", flush=True)
                 if np.all(tau * 100 < iteration) and np.all(np.abs(old_tau - tau) / tau < 0.01) and converge:
                     if progress:
                         print("Convergence reached after %d samples!" % iteration)
@@ -582,8 +638,9 @@ class GPModelling:
 
             with tracing.span("gp.chain_copy"):
                 sampler = ChainResult(
-                    chain_buf[:iteration].cpu().double().numpy(),
-                    lp_buf[:iteration].cpu().double().numpy(),
+                    run.chain[:iteration].cpu().double().numpy(),
+                    run.log_probs[:iteration].cpu().double().numpy(),
+                    (run.accepted.reshape(-1).double() / iteration).cpu().numpy(),
                 )
             self._tau = tau
             mean_tau = np.mean(tau)
@@ -612,6 +669,7 @@ class GPModelling:
                 ).cpu().numpy()
             self._sampler = sampler
         self.timings["sampling_launches"] = celerite_log_likelihood.launches - launches
+        self.timings["sampling_graph_steps"] = replayed
         self.timings["mesh_shards"] = len(shard_calls)
         self.timings["shard_launches"] = shard_calls
 

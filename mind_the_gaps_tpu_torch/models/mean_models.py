@@ -41,6 +41,7 @@ class MeanModel:
             (-np.inf if lo is None else float(lo), np.inf if hi is None else float(hi))
             for lo, hi in bounds
         ]
+        self._bound_tensors = {}  # (dtype, device) -> (lo, hi), made once for each
 
     @property
     def ndim(self) -> int:
@@ -60,8 +61,11 @@ class MeanModel:
 
     def log_prior(self, theta=None):
         theta = torch.as_tensor(self._values if theta is None else theta)
-        lo = theta.new_tensor([b[0] for b in self._bounds])
-        hi = theta.new_tensor([b[1] for b in self._bounds])
+        key = (theta.dtype, theta.device)  # made at every call, the bounds would be a copy from the host
+        both = self._bound_tensors.get(key)
+        if both is None:
+            both = self._bound_tensors[key] = tuple(theta.new_tensor([b[i] for b in self._bounds]) for i in (0, 1))
+        lo, hi = both
         inside = torch.all((theta >= lo) & (theta <= hi), dim=-1)
         return torch.where(inside, theta.new_zeros(()), theta.new_full((), -math.inf))
 

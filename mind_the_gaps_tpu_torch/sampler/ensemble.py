@@ -9,9 +9,13 @@ algorithm): complementary-half updates with the stretch proposal
 so that each step evaluates the log-probability of half the ensemble as
 one batch.  ``stretch_step`` is the one step: C ensembles in lock-step,
 each half-update one (C W/2, D) batch, written in place so that a CUDA
-graph can capture it (``sampler.graph``).  ``sample_ensemble_grouped``
-(the observed sampler) records its chain; ``max_loglike_ensemble_impl``
-and the bootstrap refits (``lrt``) keep the running best (``update_best``).
+graph can capture it (``sampler.graph``).  ``EnsembleChain`` records the
+chain of such steps in buffers that live for a whole run, reading each
+step's draws at a step index on the device, so that a CUDA graph of one
+step serves every step: ``sample_ensemble_grouped`` runs it eagerly,
+``gpmodelling.derive_posteriors`` replays it on a card.
+``max_loglike_ensemble_impl`` and the bootstrap refits (``lrt``) keep the
+running best (``update_best``).
 The random numbers enter as tensors (``stretch_draws``), so a test can
 feed both implementations the same draws; by default they come from a
 ``torch.Generator``.
@@ -31,6 +35,7 @@ __all__ = [
     "half_log_probs",
     "update_best",
     "best_walkers",
+    "EnsembleChain",
     "sample_ensemble",
     "sample_ensemble_impl",
     "sample_ensemble_grouped",
@@ -115,6 +120,50 @@ def update_best(state, logp, best_lp, best_x, tol=None):
     return improved
 
 
+class EnsembleChain:
+    """A recorded run of C ensembles of W walkers: the walkers (a copy of
+    ``state`` (C, W, D)) and their log-probabilities, the chain's rows
+    (``chain`` (max_steps, C W, D), ``log_probs`` (max_steps, C W)), the
+    draws of every step, each walker's accepted proposals (``accepted``) and,
+    on the device, the index of the next step.  All of it lives for the
+    whole run, so that one CUDA graph of ``step`` serves every step."""
+
+    def __init__(self, log_prob_fn: Callable, state, max_steps: int, a: float = 2.0):
+        c, w, d = state.shape
+        self.log_prob, self.state, self.a, self.half = log_prob_fn, state.clone(), a, _halves(state)
+        self.logp = state.new_empty((c, w))
+        self.chain = state.new_zeros((max_steps, c * w, d))
+        self.log_probs = state.new_zeros((max_steps, c * w))
+        shape = (max_steps, 2, c, self.half)
+        self.draws = (state.new_empty(shape), state.new_empty(shape, dtype=torch.int64), state.new_empty(shape))
+        self.accepted = state.new_zeros((c, w), dtype=torch.int64)
+        self.index = state.new_zeros((1,), dtype=torch.int64)
+
+    def segment(self, start: int, steps: int, generator: Optional[torch.Generator] = None, draws=None) -> None:
+        """Before the steps ``start`` to ``start + steps``: their draws
+        (``draws``, else ``stretch_draws(steps, (C, W // 2), ...)`` from
+        ``generator``) and the walkers' log-probabilities evaluated anew."""
+        if draws is None:
+            draws = stretch_draws(steps, (self.state.shape[0], self.half), self.state.dtype, self.state.device,
+                                  generator)
+        for buf, x in zip(self.draws, draws):
+            buf[start : start + steps] = x
+        self.logp.copy_(half_log_probs(self.log_prob, self.state))
+
+    def step(self) -> None:
+        """The step at ``index``: ``stretch_step`` from its draws, the chain's
+        row and the accept counts written, the index moved on; no sync and
+        no host copy, so that a CUDA graph can capture it."""
+        i = self.index
+        u_z, picks, u_acc = (x.index_select(0, i)[0] for x in self.draws)
+        acc1, acc2 = stretch_step(self.state, self.logp, self.log_prob, u_z, picks, u_acc, self.a)
+        self.accepted[:, : self.half] += acc1
+        self.accepted[:, self.half :] += acc2
+        self.chain.index_copy_(0, i, self.state.reshape(1, -1, self.state.shape[-1]))
+        self.log_probs.index_copy_(0, i, self.logp.reshape(1, -1))
+        i += 1
+
+
 def sample_ensemble_impl(
     log_prob_fn: Callable,
     initial_state,
@@ -161,21 +210,13 @@ def sample_ensemble_grouped(
     Returns chain (n_steps, C, W, D), log_probs (n_steps, C, W), the
     acceptance fraction (0-d) and the final state (C, W, D).
     """
-    state = torch.as_tensor(initial_state).clone()
-    c, w, d = state.shape
-    if draws is None:
-        draws = stretch_draws(n_steps, (c, _halves(state)), state.dtype, state.device, generator)
-    u_z, picks, u_acc = draws
-
-    logp = half_log_probs(log_prob_fn, state)
-    chain = state.new_empty((n_steps, c, w, d))
-    log_probs = state.new_empty((n_steps, c, w))
-    n_acc = torch.zeros((), dtype=torch.int64, device=state.device)
-    for i in range(n_steps):
-        acc1, acc2 = stretch_step(state, logp, log_prob_fn, u_z[i], picks[i], u_acc[i], a)
-        chain[i], log_probs[i] = state, logp
-        n_acc += acc1.sum() + acc2.sum()
-    return chain, log_probs, n_acc / (n_steps * c * w), state
+    run = EnsembleChain(log_prob_fn, torch.as_tensor(initial_state), n_steps, a)
+    c, w, d = run.state.shape
+    run.segment(0, n_steps, generator, draws)
+    for _ in range(n_steps):
+        run.step()
+    return (run.chain.reshape(n_steps, c, w, d), run.log_probs.reshape(n_steps, c, w),
+            run.accepted.sum() / (n_steps * c * w), run.state)
 
 
 def max_loglike_ensemble_impl(

@@ -1,5 +1,11 @@
 """One step of a chain captured once as a CUDA graph and replayed.
 
+Two callers: the bootstrap refits (``lrt.batched_max_loglike``, one graph a
+run, its draws made inside the step from a registered generator) and the
+observed sampler (``gpmodelling.derive_posteriors``, one graph a call, its
+draws made up front for each segment and read at a step index that lives on
+the card).
+
 A stretch-move step on a card is some 150 small operations and two
 likelihood launches; launched one by one from Python, the host takes longer to
 prepare them than the card takes to run them, and the card waits.  A
@@ -9,7 +15,7 @@ capture and that it updates in place (a chain's state, its log-probabilities,
 the running best): a replay reads and writes the same memory as the capture,
 and runs no Python.
 
-The step's random numbers come from a ``torch.Generator`` registered with the
+The refits' random numbers come from a ``torch.Generator`` registered with the
 graph (``CUDAGraph.register_generator_state``): each replay draws at the
 generator's offset of that moment and advances it by the step's draws, as the
 eager step does, so the replays give the eager chain's numbers bit for bit.
